@@ -1,0 +1,76 @@
+"""Per-(row, channel block) row shift: kernel K2 and its plain version.
+
+`row_shift_blocks(img, shifts, n_blocks)` shifts each row of img
+[R, W, n_blocks*C] along W by a fractional amount that differs per channel
+block: out[r, j] = img[r, j + s] with linear interpolation and zeros
+outside the row. One call warps every frame of a folded [H, W, T*C] BEV
+canvas. On a CUDA tensor it launches the kernel of `csrc/row_shift.cu`
+(which replaces the TPU kernel
+`pcaccumulation_tpu/ops/bilinear.py::_row_shift_blocks_pallas`); on a CPU
+tensor it runs `row_shift_blocks_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from pcaccumulation_tpu_torch.kernels import build
+
+
+def row_shift_blocks_plain(img: torch.Tensor, ki: torch.Tensor, f: torch.Tensor,
+                           n_blocks: int) -> torch.Tensor:
+    """Plain PyTorch version: per channel block, gather the shifted window
+    of a zero-padded row and lerp its two taps. ki int [R, n_blocks] in
+    [-W, W], f float [R, n_blocks]."""
+    r, w, ctot = img.shape
+    c = ctot // n_blocks
+    padded = F.pad(img, (0, 0, w, w + 1))  # [R, 3W+1, ctot]
+    win = torch.arange(w + 1, device=img.device)[None, :] + w  # [1, W+1]
+    outs = []
+    for b in range(n_blocks):
+        pos = (win + ki[:, b:b + 1].long())[..., None].expand(r, w + 1, c)
+        sl = torch.gather(padded[:, :, b * c:(b + 1) * c], 1, pos)  # [R, W+1, C]
+        fr = f[:, b, None, None].to(img.dtype)
+        outs.append(sl[:, :w] * (1.0 - fr) + sl[:, 1:] * fr)
+    return torch.cat(outs, dim=-1)
+
+
+def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """img [R, W, n_blocks*C] float32; shifts [R, n_blocks] float.
+
+    The shift splits into k = floor(s), clipped to [-W, W] (|rotation| <=
+    90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
+    a CUDA tensor goes to the kernel or raises. The kernel rounds as the
+    plain version does.
+    """
+    r, w, ctot = img.shape
+    if ctot % n_blocks or shifts.shape != (r, n_blocks):
+        raise ValueError(f"row_shift_blocks: img {tuple(img.shape)}, shifts "
+                         f"{tuple(shifts.shape)}, n_blocks {n_blocks}")
+    k = torch.floor(shifts)
+    f = (shifts - k).to(torch.float32)
+    ki = k.clamp(-w, w).to(torch.int32)
+    if img.device.type == "cpu":
+        return row_shift_blocks_plain(img, ki, f, n_blocks)
+    if img.device.type != "cuda" or shifts.device != img.device:
+        raise ValueError(f"row_shift_blocks: img on {img.device}, shifts on {shifts.device}")
+    if img.requires_grad:
+        raise RuntimeError("row_shift_blocks: backward kernel lands with the training slice")
+    if img.dtype != torch.float32:
+        raise TypeError(f"row_shift_blocks kernel takes float32, got {img.dtype}")
+    img = img.contiguous()
+    ki = ki.contiguous()
+    f = f.contiguous()
+    out = torch.empty_like(img)
+    lib = build.load_library("row_shift")
+    rc = lib.row_shift_blocks_forward(
+        img.data_ptr(), ki.data_ptr(), f.data_ptr(), out.data_ptr(), r, w, ctot,
+        n_blocks, torch.cuda.current_stream(img.device).cuda_stream,
+    )
+    build.check(rc, "row_shift")
+    row_shift_blocks.launches += 1
+    return out
+
+
+row_shift_blocks.launches = 0  # kernel launches (one per call that reached the card)

@@ -1,0 +1,83 @@
+"""2D UNet on BEV maps (the port of the JAX package's `models/unet.py`,
+plain form: the space-to-depth level 0 is the same function and is not
+ported). Tensors inside are NCHW; the public UNet takes and returns NHWC."""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+class DownConv(nn.Module):
+    """Two 3x3 convs (+ReLU) and an optional 2x2 max pool."""
+
+    def __init__(self, in_channels: int, out_channels: int, pooling: bool = True):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.pooling = pooling
+
+    def forward(self, x):
+        before_pool = torch.relu(self.conv2(torch.relu(self.conv1(x))))
+        x = F.max_pool2d(before_pool, 2) if self.pooling else before_pool
+        return x, before_pool
+
+
+class UpConv(nn.Module):
+    """2x2 stride-2 transpose-conv upsample, concat [up, skip], two 3x3 convs."""
+
+    def __init__(self, in_channels: int, skip_channels: int, out_channels: int):
+        super().__init__()
+        self.upconv = nn.ConvTranspose2d(in_channels, out_channels, 2, stride=2)
+        self.conv1 = nn.Conv2d(out_channels + skip_channels, out_channels, 3, padding=1)
+        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+
+    def forward(self, from_down, from_up):
+        x = torch.cat([self.upconv(from_up), from_down], dim=1)
+        return torch.relu(self.conv2(torch.relu(self.conv1(x))))
+
+
+def make_unet_convs(in_channels: int, down_widths: Sequence[int],
+                    up_widths: Sequence[int]) -> tuple[nn.ModuleList, nn.ModuleList]:
+    """Encoder levels of the given widths (no pool after the last) and
+    decoder levels whose skip is the encoder level of matching depth."""
+    down = nn.ModuleList()
+    c = in_channels
+    for i, w in enumerate(down_widths):
+        down.append(DownConv(c, w, pooling=i < len(down_widths) - 1))
+        c = w
+    up = nn.ModuleList()
+    for i, w in enumerate(up_widths):
+        up.append(UpConv(c, down_widths[-(i + 2)], w))
+        c = w
+    return down, up
+
+
+def run_unet(down: nn.ModuleList, up: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+    """x [N, C, H, W] through the encoder/decoder levels."""
+    encoder_outs = []
+    for level in down:
+        x, before_pool = level(x)
+        encoder_outs.append(before_pool)
+    for i, level in enumerate(up):
+        x = level(encoder_outs[-(i + 2)], x)
+    return x
+
+
+class UNet(nn.Module):
+    """Encoder/decoder with `depth` levels, start_filts doubling per level,
+    and a final 3x3 conv back to in_channels. NHWC in and out."""
+
+    def __init__(self, in_channels: int = 32, depth: int = 5, start_filts: int = 32):
+        super().__init__()
+        down_widths = [start_filts * 2 ** i for i in range(depth)]
+        self.down_convs, self.up_convs = make_unet_convs(
+            in_channels, down_widths, down_widths[-2::-1])
+        self.conv_final = nn.Conv2d(start_filts, in_channels, 3, padding=1)
+
+    def forward(self, x):
+        x = run_unet(self.down_convs, self.up_convs, x.permute(0, 3, 1, 2))
+        return self.conv_final(x).permute(0, 2, 3, 1)

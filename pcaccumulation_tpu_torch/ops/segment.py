@@ -1,0 +1,91 @@
+"""Fixed-capacity segment reductions (the port of the JAX package's
+`ops/segment.py`, forward).
+
+Every op takes a static `num_segments`; invalid rows are masked, and ids
+outside [0, num_segments) are redirected to a spare row that is dropped, as
+JAX's `mode="drop"` scatters drop them (an out-of-range index on the card
+would be a device-side assert).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
+
+_NEG_INF = -1e30  # masking sentinel of invalid rows
+
+
+def _rows(valid: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    return valid.reshape((-1,) + (1,) * (data.dim() - 1))
+
+
+def _safe_ids(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    ids = ids.long()
+    return torch.where((ids >= 0) & (ids < num_segments), ids, num_segments)
+
+
+def masked_segment_sum(data, segment_ids, valid, num_segments: int):
+    """data [N, ...] summed into [num_segments, ...] over valid rows."""
+    masked = data * _rows(valid, data).to(data.dtype)
+    out = data.new_zeros((num_segments + 1,) + data.shape[1:])
+    out.index_add_(0, _safe_ids(segment_ids, num_segments), masked)
+    return out[:num_segments]
+
+
+def masked_segment_max(data, segment_ids, valid, num_segments: int,
+                       fill_value: float = 0.0):
+    """Segment max over valid rows; empty segments get `fill_value`."""
+    masked = torch.where(_rows(valid, data), data, _NEG_INF)
+    out = data.new_full((num_segments + 1,) + data.shape[1:], _NEG_INF)
+    idx = _safe_ids(segment_ids, num_segments)
+    idx = idx.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    out = out.scatter_reduce(0, idx, masked, reduce="amax", include_self=True)
+    out = out[:num_segments]
+    return torch.where(out <= _NEG_INF * 0.5, fill_value, out)
+
+
+def masked_segment_mean(data, segment_ids, valid, num_segments: int,
+                        eps: float = 1e-12):
+    total = masked_segment_sum(data, segment_ids, valid, num_segments)
+    count = masked_segment_sum(valid.to(data.dtype), segment_ids, valid, num_segments)
+    return total / torch.clamp(count, min=eps).reshape(
+        (num_segments,) + (1,) * (data.dim() - 1))
+
+
+def masked_seg_pool_max(data, seg_ids, valid, fill_value: float = 0.0):
+    """Masked segment max broadcast back to every row, over SORTED seg_ids:
+    `masked_segment_max(...)[seg_ids]` without a scatter. This is the call
+    site of kernel K1 (kernels/segscan.py)."""
+    masked = torch.where(_rows(valid, data), data, _NEG_INF)
+    y = seg_pool(masked, seg_ids, "max")
+    return torch.where(y <= _NEG_INF * 0.5, fill_value, y)
+
+
+def compact_mask_indices(mask: torch.Tensor, s_cap: int):
+    """Indices of a mask's True rows, compacted to a static capacity.
+
+    mask [B, N] bool -> (sel [B, s_cap] int64, sel_valid [B, s_cap] bool).
+    Stable partition via two cumsums: selected indices first (ascending),
+    then unselected filler, truncated at s_cap. The rows are a prefix of a
+    permutation of arange(N), hence distinct. Overflow rows beyond s_cap
+    True rows are not selected.
+    """
+    b, n = mask.shape
+    sel_cum = torch.cumsum(mask.long(), dim=1)  # 1-based rank among selected
+    count = sel_cum[:, -1:]
+    idx = torch.arange(n, device=mask.device)[None].expand(b, n)
+    unsel_rank = (idx + 1) - sel_cum
+    dest = torch.where(mask, sel_cum - 1, count + unsel_rank - 1)  # permutation
+    dest = torch.where(dest < s_cap, dest, s_cap)  # beyond the capacity: dropped
+    sel = torch.zeros((b, s_cap + 1), dtype=torch.long, device=mask.device)
+    sel.scatter_(1, dest, idx)
+    sel_valid = idx[:, :s_cap] < count
+    return sel[:, :s_cap], sel_valid
+
+
+def take_rows_unique(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Batched row gather: arr [B, N, ...], idx [B, S] in [0, N) -> [B, S, ...]."""
+    expand = idx.reshape(idx.shape + (1,) * (arr.dim() - 2)).expand(
+        idx.shape + arr.shape[2:])
+    return torch.gather(arr, 1, expand)
