@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of pcaccumulation_tpu for one NVIDIA H100.
 
-The val-mode MotionNet forward at the default config, with hand-written
-CUDA kernels for the segment pool (kernels/segscan.py) and the shear-warp
+The val-mode MotionNet forward and training (train/trainer.py, main.py) at
+the default config, with hand-written CUDA kernels, and gradients that
+launch them, for the segment pool (kernels/segscan.py) and the shear-warp
 row shift (kernels/row_shift.py). Entry points run on the card unless the
 caller asks for the CPU with `device="cpu"`; without a CUDA device they
 raise instead of falling back.

@@ -1,15 +1,20 @@
-"""Layered YAML configuration.
+"""Layered YAML configuration with dotted CLI overrides.
 
-The port's own copy of the JAX package's `config.py` (`load_config` and
-`derive`): a default YAML overridden by a per-dataset YAML, and the derived
-voxel-grid values propagated into the model sections. It reads the
-repository's `configs/*.yaml` as data.
+The port's own copy of the JAX package's `config.py`: a default YAML
+overridden by a per-dataset YAML, then `--a.b.c=value` overrides with typed
+decoding (bool / int / float / list / str), and the derived voxel-grid
+values propagated into the model sections. It reads the repository's
+`configs/*.yaml` as data.
 """
 
 from __future__ import annotations
 
+import copy
+import json
 import os
+from typing import Any
 
+import numpy as np
 import yaml
 
 _DEFAULT = os.path.join(os.path.dirname(__file__), "..", "configs", "default.yaml")
@@ -23,6 +28,45 @@ def update_recursive(dst: dict, src: dict) -> dict:
         else:
             dst[k] = v
     return dst
+
+
+def decode_value(value: str) -> Any:
+    low = value.lower()
+    if low == "true":
+        return True
+    if low == "false":
+        return False
+    if value.startswith("[") and value.endswith("]"):
+        items = [v.strip() for v in value[1:-1].split(",") if v.strip()]
+        return [decode_value(v) for v in items]
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except ValueError:
+            pass
+    return value
+
+
+def parse_overrides(args: list[str]) -> dict:
+    """Parse ['--a.b=1', '--c.d', '2'] into a nested dict."""
+    out: dict = {}
+    i = 0
+    while i < len(args):
+        arg = args[i]
+        if not arg.startswith("--"):
+            raise ValueError(f"override must start with '--': {arg}")
+        if "=" in arg:
+            key, raw = arg[2:].split("=", 1)
+            i += 1
+        else:
+            key, raw = arg[2:], args[i + 1]
+            i += 2
+        node = out
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = decode_value(raw)
+    return out
 
 
 def derive(cfg: dict) -> dict:
@@ -41,12 +85,30 @@ def derive(cfg: dict) -> dict:
     return cfg
 
 
-def load_config(path: str | None = None) -> dict:
-    """configs/default.yaml, overridden by the YAML at `path` if given,
-    then derived."""
+def load_config(path: str | None = None, overrides: list[str] | None = None) -> dict:
+    """configs/default.yaml, overridden by the YAML at `path` if given and
+    by `--a.b=c` overrides, then derived."""
     with open(os.path.normpath(_DEFAULT)) as f:
         cfg = yaml.safe_load(f)
     if path is not None:
         with open(path) as f:
             update_recursive(cfg, yaml.safe_load(f) or {})
+    if overrides:
+        update_recursive(cfg, parse_overrides(overrides))
     return derive(cfg)
+
+
+def save_config(cfg: dict, path: str) -> None:
+    def clean(x):
+        if isinstance(x, dict):
+            return {k: clean(v) for k, v in x.items() if not k.startswith("_")}
+        if isinstance(x, (np.integer,)):
+            return int(x)
+        if isinstance(x, (np.floating,)):
+            return float(x)
+        if isinstance(x, np.ndarray):
+            return x.tolist()
+        return x
+
+    with open(path, "w") as f:
+        json.dump(clean(copy.deepcopy(cfg)), f, indent=2, default=str)

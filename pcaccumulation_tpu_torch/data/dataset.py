@@ -1,18 +1,34 @@
-"""Per-sample preprocessing: raw sample -> cropped, voxelised, pillar-sorted,
-padded arrays (the port's copy of the JAX package's
-`data/dataset.py::prep_sample`)."""
+"""Dataset: npz samples -> augmented, cropped, voxelised, pillar-sorted,
+padded arrays (the port's copy of the JAX package's `data/dataset.py`)."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from pcaccumulation_tpu_torch.data.voxelizer import pad_sample, voxelize
 
 
-def prep_sample(data: dict, cfg: dict) -> dict:
-    """Crop, remove ground, voxelise, sort points by pillar id and pad to
-    the static capacities (the JAX package's `prep_sample` with
-    `augment=False`: the training augmentation comes with training)."""
+def _random_aug_tsfm(rng, rot_aug, shift_range):
+    """Random SE(2) augmentation transform: a yaw in [0, pi * rot_aug) and
+    an xy shift in [-shift_range, shift_range)."""
+    yaw = rng.uniform(0, np.pi * rot_aug)
+    c, s = np.cos(yaw), np.sin(yaw)
+    tsfm = np.eye(4)
+    tsfm[:2, :2] = [[c, -s], [s, c]]
+    tsfm[0, 3] = rng.uniform(-shift_range, shift_range)
+    tsfm[1, 3] = rng.uniform(-shift_range, shift_range)
+    return tsfm
+
+
+def prep_sample(data: dict, cfg: dict, augment: bool = False,
+                rng: np.random.Generator | None = None) -> dict:
+    """Augment (optionally), crop, remove ground, voxelise, sort points by
+    pillar id and pad to the static capacities. The augmentation moves the
+    points by a random SE(2) transform, adds noise and scales them, and
+    conjugates the GT poses by the transform; it draws from `rng` in the
+    JAX package's order, so one seed gives both packages the same sample."""
     vg = cfg["voxel_generator"]
     cap = cfg["capacity"]
 
@@ -24,6 +40,22 @@ def prep_sample(data: dict, cfg: dict) -> dict:
     sem = np.asarray(data.get("sem_labels", np.zeros_like(sd))).astype(np.int32)
     ego_gt = np.asarray(data["ego_motion_gt"], np.float32)
     inst_gt = np.asarray(data["bbox_tsfm"], np.float32)
+
+    # 0. augmentation + GT pose conjugation
+    if augment:
+        rng = rng or np.random.default_rng()
+        aug = cfg["data_aug"]
+        tsfm = _random_aug_tsfm(rng, aug["rot_aug"], aug["augment_shift_range"])
+        t32 = tsfm.astype(np.float32)
+        points = (t32[:3, :3] @ points.T).T + t32[:3, 3]
+        noise = rng.random(points.shape, dtype=np.float32) - np.float32(0.5)
+        points += noise * np.float32(aug["augment_noise"])
+        scale = rng.uniform(aug["augment_scale_min"], aug["augment_scale_max"])
+        points *= np.float32(scale)
+        inv = np.linalg.inv(tsfm)
+        ego_gt = (tsfm[None] @ ego_gt @ inv[None]).astype(np.float32)
+        flat = inst_gt.reshape(-1, 4, 4)
+        inst_gt = (tsfm[None] @ flat @ inv[None]).reshape(inst_gt.shape).astype(np.float32)
 
     # 1. crop
     crop_xy, crop_z_min, crop_z_max = vg["crop_range"]
@@ -74,3 +106,26 @@ def prep_sample(data: dict, cfg: dict) -> dict:
         "point_valid": in_range & (pillar_of_point < cap["max_pillars"]),
     }
     return pad_sample(sample, cap["max_points"], cap["max_instances"])
+
+
+class SceneDataset:
+    """File-list dataset over preprocessed .npz samples: `<split>_info.txt`
+    under the base directory lists their relative paths. Training samples
+    are augmented."""
+
+    def __init__(self, cfg: dict, split: str, augment: bool | None = None,
+                 base_dir: str | None = None):
+        self.cfg = cfg
+        self.base = base_dir or cfg["path"]["dataset_base"]
+        self.augment = augment if augment is not None else (split == "train")
+        with open(os.path.join(self.base, f"{split}_info.txt")) as f:
+            self.infos = [line.strip() for line in f if line.strip()]
+
+    def __len__(self):
+        return len(self.infos)
+
+    def __getitem__(self, idx: int) -> dict:
+        with np.load(os.path.join(self.base, self.infos[idx]), allow_pickle=True) as data:
+            data = dict(data)
+        rng = np.random.Generator(np.random.SFC64())
+        return prep_sample(data, self.cfg, augment=self.augment, rng=rng)

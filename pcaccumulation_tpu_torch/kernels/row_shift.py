@@ -1,4 +1,5 @@
-"""Per-(row, channel block) row shift: kernel K2 and its plain version.
+"""Per-(row, channel block) row shift: kernel K2, its gradient and their
+plain version.
 
 `row_shift_blocks(img, shifts, n_blocks)` shifts each row of img
 [R, W, n_blocks*C] along W by a fractional amount that differs per channel
@@ -8,12 +9,18 @@ canvas. On a CUDA tensor it launches the kernel of `csrc/row_shift.cu`
 (which replaces the TPU kernel
 `pcaccumulation_tpu/ops/bilinear.py::_row_shift_blocks_pallas`); on a CPU
 tensor it runs `row_shift_blocks_plain`.
+
+Its gradient (`RowShiftBlocks`) is the JAX package's custom VJP
+(`ops/bilinear.py::_make_row_shift_blocks`): the same kernel at -shifts
+for the image, zero for the shifts. That is not the exact transpose of the
+lerp at the row ends, and the port follows JAX, not autograd.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from pcaccumulation_tpu_torch.kernels import build
 
@@ -36,27 +43,19 @@ def row_shift_blocks_plain(img: torch.Tensor, ki: torch.Tensor, f: torch.Tensor,
     return torch.cat(outs, dim=-1)
 
 
-def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """img [R, W, n_blocks*C] float32; shifts [R, n_blocks] float.
-
-    The shift splits into k = floor(s), clipped to [-W, W] (|rotation| <=
-    90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
-    a CUDA tensor goes to the kernel or raises. The kernel rounds as the
-    plain version does.
-    """
-    r, w, ctot = img.shape
-    if ctot % n_blocks or shifts.shape != (r, n_blocks):
-        raise ValueError(f"row_shift_blocks: img {tuple(img.shape)}, shifts "
-                         f"{tuple(shifts.shape)}, n_blocks {n_blocks}")
+def _split(shifts: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """shift -> (k = floor(s) clipped to [-W, W] as int32, f = s - floor(s))."""
     k = torch.floor(shifts)
-    f = (shifts - k).to(torch.float32)
-    ki = k.clamp(-w, w).to(torch.int32)
+    return k.clamp(-w, w).to(torch.int32), (shifts - k).to(torch.float32)
+
+
+def _shift(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> tuple[torch.Tensor, bool]:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor.
+    Returns (out, launched)."""
+    r, w, ctot = img.shape
+    ki, f = _split(shifts, w)
     if img.device.type == "cpu":
-        return row_shift_blocks_plain(img, ki, f, n_blocks)
-    if img.device.type != "cuda" or shifts.device != img.device:
-        raise ValueError(f"row_shift_blocks: img on {img.device}, shifts on {shifts.device}")
-    if img.requires_grad:
-        raise RuntimeError("row_shift_blocks: backward kernel lands with the training slice")
+        return row_shift_blocks_plain(img, ki, f, n_blocks), False
     if img.dtype != torch.float32:
         raise TypeError(f"row_shift_blocks kernel takes float32, got {img.dtype}")
     img = img.contiguous()
@@ -69,8 +68,53 @@ def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> 
         n_blocks, torch.cuda.current_stream(img.device).cuda_stream,
     )
     build.check(rc, "row_shift")
-    row_shift_blocks.launches += 1
+    return out, True
+
+
+def row_shift_blocks_backward(g: torch.Tensor, shifts: torch.Tensor,
+                              n_blocks: int) -> torch.Tensor:
+    """Gradient of `row_shift_blocks` for the image, given the cotangent g
+    of its output: the same shift at -shifts (one K2 launch on a CUDA
+    tensor, the plain version on a CPU tensor)."""
+    out, launched = _shift(g, -shifts, n_blocks)
+    row_shift_blocks_backward.launches += launched
     return out
 
 
-row_shift_blocks.launches = 0  # kernel launches (one per call that reached the card)
+class RowShiftBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, img, shifts, n_blocks):
+        out, launched = _shift(img, shifts, n_blocks)
+        row_shift_blocks.launches += launched
+        ctx.n_blocks = n_blocks
+        ctx.save_for_backward(shifts)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (shifts,) = ctx.saved_tensors
+        return (row_shift_blocks_backward(g, shifts, ctx.n_blocks),
+                torch.zeros_like(shifts), None)
+
+
+def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """img [R, W, n_blocks*C] float32; shifts [R, n_blocks] float.
+
+    The shift splits into k = floor(s), clipped to [-W, W] (|rotation| <=
+    90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
+    a CUDA tensor goes to the kernel or raises. The kernel rounds as the
+    plain version does. Differentiable in img through `RowShiftBlocks`.
+    """
+    r, w, ctot = img.shape
+    if ctot % n_blocks or shifts.shape != (r, n_blocks):
+        raise ValueError(f"row_shift_blocks: img {tuple(img.shape)}, shifts "
+                         f"{tuple(shifts.shape)}, n_blocks {n_blocks}")
+    if img.device.type != "cpu" and (img.device.type != "cuda"
+                                     or shifts.device != img.device):
+        raise ValueError(f"row_shift_blocks: img on {img.device}, shifts on {shifts.device}")
+    return RowShiftBlocks.apply(img, shifts, n_blocks)
+
+
+row_shift_blocks.launches = 0  # forward kernel launches (one per call that reached the card)
+row_shift_blocks_backward.launches = 0  # gradient kernel launches

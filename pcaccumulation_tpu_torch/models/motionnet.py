@@ -9,8 +9,10 @@ are `torch.where` selections on default outputs, so the forward never
 reads a value back to the host.
 
 BatchNorm runs with batch statistics in `model.train()` and with running
-statistics in `model.eval()`. The forward makes no gradients through the
-CUDA kernels yet: run it under `torch.no_grad()` on the card.
+statistics in `model.eval()`. The forward is differentiable: the kernels'
+gradients are `torch.autograd.Function`s (kernels/segscan.py,
+kernels/row_shift.py). As in the JAX package, the warp and the
+reconstruction read the BEV features and the ego pose detached.
 
 Each stage runs inside a `torch.profiler.record_function` range named
 `motionnet.<stage>`; `pcaccumulation_tpu_torch.profile_forward` reads them.

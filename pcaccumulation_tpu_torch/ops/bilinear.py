@@ -1,5 +1,5 @@
 """Bilinear BEV sampling, scattering and the shear warp (the port of the JAX
-package's `ops/bilinear.py`, forward).
+package's `ops/bilinear.py`).
 
 The functions are batched: a leading batch dimension B stands where the JAX
 package vmaps. Layouts after it are the JAX package's: BEV maps are NHWC,

@@ -1,15 +1,17 @@
 """Fixed-capacity segment reductions (the port of the JAX package's
-`ops/segment.py`, forward).
+`ops/segment.py`).
 
 Every op takes a static `num_segments`; invalid rows are masked, and ids
 outside [0, num_segments) are redirected to a spare row that is dropped, as
 JAX's `mode="drop"` scatters drop them (an out-of-range index on the card
-would be a device-side assert).
+would be a device-side assert). Both max reductions split the gradient
+evenly among tied maxima, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
 
@@ -33,15 +35,40 @@ def masked_segment_sum(data, segment_ids, valid, num_segments: int):
     return out[:num_segments]
 
 
+class _SegmentMax(torch.autograd.Function):
+    """Segment max of x [N, ...] into [num_rows, ...] (rows start at the
+    masking sentinel) with the JAX package's winner-mask gradient
+    (`ops/segment.py::_segment_max_core`): each row of x equal to its
+    segment's max gets the segment's cotangent divided by the number of
+    such rows. The sentinel start value is no candidate, as in JAX's
+    segment_max, where `scatter_reduce`'s own gradient would count it."""
+
+    @staticmethod
+    def forward(ctx, x, idx, num_rows):
+        out = x.new_full((num_rows,) + x.shape[1:], _NEG_INF)
+        out = out.scatter_reduce(0, idx.expand_as(x), x, reduce="amax", include_self=True)
+        ctx.save_for_backward(x, idx, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, idx, out = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        winner = x == out[flat]
+        nties = torch.zeros_like(out).index_add_(0, flat, winner.to(out.dtype))
+        share = g / torch.clamp(nties, min=1.0)
+        return torch.where(winner, share[flat], 0.0), None, None
+
+
 def masked_segment_max(data, segment_ids, valid, num_segments: int,
                        fill_value: float = 0.0):
-    """Segment max over valid rows; empty segments get `fill_value`."""
+    """Segment max over valid rows; empty segments get `fill_value`.
+    Ties split the gradient evenly (`_SegmentMax`)."""
     masked = torch.where(_rows(valid, data), data, _NEG_INF)
-    out = data.new_full((num_segments + 1,) + data.shape[1:], _NEG_INF)
     idx = _safe_ids(segment_ids, num_segments)
-    idx = idx.reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
-    out = out.scatter_reduce(0, idx, masked, reduce="amax", include_self=True)
-    out = out[:num_segments]
+    idx = idx.reshape((-1,) + (1,) * (data.dim() - 1))
+    out = _SegmentMax.apply(masked, idx, num_segments + 1)[:num_segments]
     return torch.where(out <= _NEG_INF * 0.5, fill_value, out)
 
 

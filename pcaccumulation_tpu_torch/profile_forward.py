@@ -1,19 +1,27 @@
-"""Where the val forward's time goes on the card.
+"""Where the val forward's and the training micro-step's time goes on the
+card.
 
-    python -m pcaccumulation_tpu_torch.profile_forward
+    python -m pcaccumulation_tpu_torch.profile_forward [--train]
 
 Builds the default config's MotionNet (configs/default.yaml) at full width
 with seeded random weights on synthetic scenes at the config's capacities,
 warms it up, then measures:
-- the forward's median time on the host clock, synchronised;
+- the forward's (with --train: the micro-step's) median time on the host
+  clock, synchronised;
 - each stage's device time, from CUDA events around the forward's
-  `motionnet.<stage>` ranges (see models/motionnet.py);
-- with torch.profiler over ITERS forwards: the kernels by device time,
-  each stage's kernel launches and kernel-busy time, and the device's
-  busy share (the union of kernel intervals over the profiled forwards'
-  device window).
+  `motionnet.<stage>` ranges (see models/motionnet.py). With --train also
+  each stage's backward: the saved tensors of a stage's forward carry its
+  label, and every backward node that unpacks one records a CUDA event; the
+  device time from one event to the next goes to that event's stage (nodes
+  that save nothing count to the stage before them). The loss, the rest of
+  the backward and the optimizer update get their own rows;
+- with torch.profiler over ITERS forwards (micro-steps): the kernels by
+  device time, each forward stage's kernel launches and kernel-busy time,
+  and the device's busy share (the union of kernel intervals over the
+  profiled window).
 It prints a readable table and, as its last line, one JSON object with the
-same numbers. Without a CUDA device it exits 1.
+same numbers. Without a CUDA device it exits 1. The training micro-step is
+the Trainer's: B=4, iter_size 2, train-mode BN, the random keypoint draw.
 """
 
 from __future__ import annotations
@@ -47,24 +55,43 @@ def default_scenes(cfg: dict, n: int) -> list[dict]:
     ]
 
 
+def _event() -> torch.cuda.Event:
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
 class _StageEvents:
     """Stands in for `record_function` in models/motionnet.py: records a
-    CUDA event pair around each stage and keeps the pairs per label."""
+    CUDA event pair around each stage and keeps the pairs per label. With
+    `backward_marks` set to a list, the stage's saved tensors are tagged
+    with its label, and each unpack in the backward appends (label, event)
+    to the list."""
 
     pairs: dict[str, list] = collections.defaultdict(list)
+    backward_marks: list | None = None
 
     def __init__(self, label: str):
         self.label = label.split(".", 1)[-1]
+        self.hooks = None
 
     def __enter__(self):
-        self.start = torch.cuda.Event(enable_timing=True)
-        self.end = torch.cuda.Event(enable_timing=True)
-        self.start.record()
+        self.start = _event()
+        if self.backward_marks is not None:
+            marks, label = self.backward_marks, self.label
+
+            def unpack(packed):
+                marks.append((label, _event()))
+                return packed
+
+            self.hooks = torch.autograd.graph.saved_tensors_hooks(lambda t: t, unpack)
+            self.hooks.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.end.record()
-        self.pairs[self.label].append((self.start, self.end))
+        if self.hooks is not None:
+            self.hooks.__exit__(*exc)
+        self.pairs[self.label].append((self.start, _event()))
         return False
 
 
@@ -78,57 +105,10 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        print("profile_forward: no CUDA device", file=sys.stderr)
-        sys.exit(1)
-
-    import pcaccumulation_tpu_torch as port
-    from pcaccumulation_tpu_torch.config import load_config
-    from pcaccumulation_tpu_torch.data.loader import collate
-    from pcaccumulation_tpu_torch.kernels import build
-    from pcaccumulation_tpu_torch.models import motionnet
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"card: {smi}", flush=True)
-    build.build_all()
-    cfg = load_config()
-    cfg["pose_estimation"]["deterministic_sampling"] = True
-    batches = [port.to_device(collate([s])) for s in default_scenes(cfg, 3)]
-    torch.manual_seed(SEED)
-    model = port.build_model(cfg)
-
-    with torch.no_grad():
-        for bt in batches:
-            model(bt)
-        host_ms = []
-        for i in range(ITERS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(batches[i % len(batches)])
-            torch.cuda.synchronize()
-            host_ms.append((time.perf_counter() - t0) * 1e3)
-        fwd_ms = statistics.median(host_ms)
-
-        # per-stage device time: CUDA events at the stage ranges
-        motionnet.record_function = _StageEvents
-        try:
-            for i in range(ITERS):
-                model(batches[i % len(batches)])
-            torch.cuda.synchronize()
-        finally:
-            motionnet.record_function = torch.profiler.record_function
-        stages = {k: statistics.median(s.elapsed_time(e) for s, e in v)
-                  for k, v in _StageEvents.pairs.items()}
-
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for i in range(ITERS):
-                model(batches[i % len(batches)])
-            torch.cuda.synchronize()
-
+def _kernel_summary(prof, iters: int) -> dict:
+    """Kernels by device time, busy time and device window per iteration,
+    and each forward stage's kernel-busy time and launches, from a profile
+    of `iters` iterations."""
     # device events are kernels, copies and the device-side spans of the
     # `motionnet.<stage>` annotations; the spans are not work
     device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -137,19 +117,16 @@ def main() -> None:
         return getattr(e, "is_user_annotation", False) or e.name.startswith("motionnet.")
 
     spans = sorted((e for e in device if is_span(e)), key=lambda e: e.time_range.start)
-    span_starts = [s.time_range.start for s in spans]
+    span_starts = [sp.time_range.start for sp in spans]
     kernels = [e for e in device if not is_span(e)]
     by_name: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
         by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
         by_name[e.name][1] += 1
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
-    busy_per_fwd = busy_ms / ITERS
-    # the profiled forwards' device window: first kernel start to last end
-    window_per_fwd = ((max(e.time_range.end for e in kernels)
-                       - min(e.time_range.start for e in kernels)) / 1e3 / ITERS
-                      if kernels else None)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    busy = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / iters
+    # the profiled device window: first kernel start to last end
+    window = ((max(e.time_range.end for e in kernels)
+               - min(e.time_range.start for e in kernels)) / 1e3 / iters if kernels else None)
     # per stage: the kernels that start inside the stage's device span
     # (the spans of one stream do not overlap)
     stage_kernels: dict[str, list] = collections.defaultdict(list)
@@ -157,9 +134,97 @@ def main() -> None:
         i = bisect.bisect_right(span_starts, e.time_range.start) - 1
         if i >= 0 and e.time_range.start < spans[i].time_range.end:
             stage_kernels[spans[i].name.split(".", 1)[-1]].append(e)
-    stage_busy = {k: _union_us([(e.time_range.start, e.time_range.end) for e in v])
-                  / 1e3 / ITERS for k, v in stage_kernels.items()}
-    stage_launches = {k: len(v) / ITERS for k, v in stage_kernels.items()}
+    return {
+        "n_kernels": len(kernels), "busy_ms": busy if kernels else None, "window_ms": window,
+        "top": sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20],
+        "stage_busy": {k: _union_us([(e.time_range.start, e.time_range.end) for e in v])
+                       / 1e3 / iters for k, v in stage_kernels.items()},
+        "stage_launches": {k: len(v) / iters for k, v in stage_kernels.items()},
+    }
+
+
+def _print_kernels(summary: dict, iters: int, what: str) -> None:
+    if not summary["n_kernels"]:
+        print("the profiler recorded no device kernels: busy share not measured")
+        return
+    busy, window = summary["busy_ms"], summary["window_ms"]
+    print(f"profiled: device busy {busy:.3f} ms of a {window:.3f} ms device window per {what} "
+          f"(busy share {busy / window:.3f}); {summary['n_kernels'] / iters:.0f} kernels per "
+          f"{what}")
+    print(f"kernels by device time (ms per {what}, launches per {what}):")
+    for name, (ms, cnt) in summary["top"]:
+        print(f"  {ms / iters:8.3f} {cnt // iters:5d}  {name[:110]}")
+
+
+def _summary_json(summary: dict, iters: int, what: str) -> dict:
+    return {
+        f"busy_ms_per_{what}": summary["busy_ms"],
+        f"profiled_window_ms_per_{what}": summary["window_ms"],
+        f"kernels_per_{what}": summary["n_kernels"] / iters,
+        "top_kernels": [{"name": n[:200], f"ms_per_{what}": ms / iters,
+                         f"launches_per_{what}": c / iters}
+                        for n, (ms, c) in summary["top"]],
+    }
+
+
+def _profile(run, iters: int):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(iters):
+            run(i)
+        torch.cuda.synchronize()
+    return _kernel_summary(prof, iters)
+
+
+def _with_stage_events(run, iters: int, backward_marks: list | None = None) -> dict:
+    """Run `iters` iterations with the stage ranges replaced by CUDA event
+    pairs; returns the median device ms per stage."""
+    from pcaccumulation_tpu_torch.models import motionnet
+
+    _StageEvents.pairs.clear()
+    _StageEvents.backward_marks = backward_marks
+    motionnet.record_function = _StageEvents
+    try:
+        for i in range(iters):
+            run(i)
+        torch.cuda.synchronize()
+    finally:
+        motionnet.record_function = torch.profiler.record_function
+        _StageEvents.backward_marks = None
+    return {k: statistics.median(a.elapsed_time(b) for a, b in v)
+            for k, v in _StageEvents.pairs.items()}
+
+
+def _host_ms(run, iters: int) -> list[float]:
+    out = []
+    for i in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def profile_val(port, cfg, smi: str) -> None:
+    from pcaccumulation_tpu_torch.data.loader import collate
+
+    cfg["pose_estimation"]["deterministic_sampling"] = True
+    batches = [port.to_device(collate([s])) for s in default_scenes(cfg, 3)]
+    torch.manual_seed(SEED)
+    model = port.build_model(cfg)
+
+    def run(i):
+        model(batches[i % len(batches)])
+
+    with torch.no_grad():
+        for i in range(len(batches)):
+            run(i)
+        host_ms = _host_ms(run, ITERS)
+        fwd_ms = statistics.median(host_ms)
+        stages = _with_stage_events(run, ITERS)
+        summary = _profile(run, ITERS)
+    stage_busy, stage_launches = summary["stage_busy"], summary["stage_launches"]
 
     print(f"val forward (B=1, default config): median {fwd_ms:.3f} ms of {ITERS} "
           f"on {smi}")
@@ -170,25 +235,108 @@ def main() -> None:
               f"{stage_launches.get(k, 0.0):7.0f}")
     print(f"  {'sum':16s} {sum(stages.values()):9.3f} {sum(stage_busy.values()):9.3f} "
           f"{sum(stage_launches.values()):7.0f}")
-    if kernels:
-        print(f"profiled: device busy {busy_per_fwd:.3f} ms of a {window_per_fwd:.3f} ms "
-              f"device window per forward (busy share {busy_per_fwd / window_per_fwd:.3f}); "
-              f"{len(kernels) / ITERS:.0f} kernels per forward")
-        print("kernels by device time (ms per forward, launches per forward):")
-        for name, (ms, cnt) in top:
-            print(f"  {ms / ITERS:8.3f} {cnt // ITERS:5d}  {name[:110]}")
-    else:
-        print("the profiler recorded no device kernels: busy share not measured")
+    _print_kernels(summary, ITERS, "forward")
     print(json.dumps({
         "card": smi, "forward_ms": fwd_ms, "forward_ms_all": host_ms, "stage_ms": stages,
         "stage_busy_ms": stage_busy, "stage_launches": stage_launches,
-        "busy_ms_per_forward": busy_per_fwd if kernels else None,
-        "profiled_window_ms_per_forward": window_per_fwd,
-        "kernels_per_forward": len(kernels) / ITERS,
-        "top_kernels": [{"name": n[:200], "ms_per_forward": ms / ITERS,
-                         "launches_per_forward": c / ITERS} for n, (ms, c) in top],
+        **_summary_json(summary, ITERS, "forward"),
     }), flush=True)
 
 
+def profile_train(port, cfg, smi: str) -> None:
+    import tempfile
+
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.train.loss import fuse_loss
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    bsz = cfg["train"]["batch_size"]
+    scenes = default_scenes(cfg, 2 * bsz)
+    batches = [port.to_device(collate(scenes[i * bsz:(i + 1) * bsz])) for i in range(2)]
+    torch.manual_seed(SEED)
+    model = port.build_model(cfg)
+    with tempfile.TemporaryDirectory() as run_dir:
+        tr = Trainer(cfg, model, {"train": batches}, save_dir=run_dir)
+
+        def run(i):
+            tr.train_step(batches[i % 2], tr.step_generator(0, "train", i))
+
+        for i in range(3):
+            run(i)
+        host_ms = _host_ms(run, ITERS)
+
+        # the Trainer's step written out, with events between its parts
+        parts = collections.defaultdict(list)
+        marks: list = []
+
+        def run_parts(i):
+            marks.clear()
+            e0 = _event()
+            tr.model.train()
+            bt = batches[i % 2]
+            results = tr.model(bt, mode="train", generator=tr.step_generator(0, "train", i))
+            e1 = _event()
+            stats = fuse_loss(results, bt, cfg["loss"], cfg["capacity"]["max_instances"])
+            for p in tr.params:
+                p.grad = None
+            e2 = _event()
+            marks.append(("loss", e2))
+            stats["loss"].backward()
+            e3 = _event()
+            tr.optimizer.update([p.grad for p in tr.params])
+            e4 = _event()
+            torch.cuda.synchronize()
+            parts["forward"].append(e0.elapsed_time(e1))
+            parts["loss"].append(e1.elapsed_time(e2))
+            parts["backward"].append(e2.elapsed_time(e3))
+            parts["optimizer"].append(e3.elapsed_time(e4))
+            bwd = collections.defaultdict(float)
+            seq = marks + [("end", e3)]
+            for (label, a), (_, b) in zip(seq, seq[1:]):
+                bwd[label] += a.elapsed_time(b)
+            for k, v in bwd.items():
+                parts[f"bwd.{k}"].append(v)
+
+        stages = _with_stage_events(run_parts, ITERS, backward_marks=marks)
+        summary = _profile(run, ITERS)
+    part_ms = {k: statistics.median(v) for k, v in parts.items()}
+    step_ms = statistics.median(host_ms)
+    print(f"train micro-step (B={bsz}, iter_size {cfg['train']['iter_size']}, default config): "
+          f"median {step_ms:.3f} ms of {ITERS} on {smi}")
+    print("parts of the micro-step, device ms between CUDA events (median): " + ", ".join(
+        f"{k} {part_ms[k]:.3f}" for k in ("forward", "loss", "backward", "optimizer")))
+    print("per stage: forward device ms (stage events) and backward device ms (saved-tensor "
+          "marks), median:")
+    for k in stages:
+        print(f"  {k:16s} {stages[k]:9.3f} {part_ms.get(f'bwd.{k}', 0.0):9.3f}")
+    print(f"  {'loss':16s} {part_ms['loss']:9.3f} {part_ms.get('bwd.loss', 0.0):9.3f}")
+    _print_kernels(summary, ITERS, "step")
+    print(json.dumps({
+        "card": smi, "train_step_ms": step_ms, "train_step_ms_all": host_ms,
+        "part_ms": part_ms, "stage_fwd_ms": stages,
+        **_summary_json(summary, ITERS, "step"),
+    }), flush=True)
+
+
+def main(argv: list[str]) -> None:
+    if not torch.cuda.is_available():
+        print("profile_forward: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+
+    import pcaccumulation_tpu_torch as port
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.kernels import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"card: {smi}", flush=True)
+    build.build_all()
+    if "--train" in argv[1:]:
+        profile_train(port, load_config(), smi)
+    else:
+        profile_val(port, load_config(), smi)
+
+
 if __name__ == "__main__":
-    main()
+    main(sys.argv)

@@ -2,8 +2,8 @@
 
 CPU: the port's plain versions against the JAX package's Pallas kernels run
 in interpret mode and against its references, on the same numpy inputs.
-CUDA (marked `cuda`, skipped without a card): each kernel against its plain
-version on the card. The CUDA tests import no JAX, so on a machine without
+CUDA (marked `cuda`, skipped without a card): each kernel and its gradient
+against their plain versions on the card. The CUDA tests import no JAX, so on a machine without
 it they run with
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -12,8 +12,17 @@ import numpy as np
 import pytest
 import torch
 
-from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks, row_shift_blocks_plain
-from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_plain
+from pcaccumulation_tpu_torch.kernels.row_shift import (
+    row_shift_blocks,
+    row_shift_blocks_backward,
+    row_shift_blocks_plain,
+)
+from pcaccumulation_tpu_torch.kernels.segscan import (
+    seg_pool,
+    seg_pool_backward,
+    seg_pool_backward_plain,
+    seg_pool_plain,
+)
 
 
 def _sorted_ids(rng, n, m, long_run_at=None, run_len=0, tail=0):
@@ -139,13 +148,46 @@ def test_seg_pool_kernel_one_run_over_all_tiles(cuda):
 
 
 @pytest.mark.cuda
-def test_kernels_refuse_grad(cuda):
-    x = torch.randn((64, 4), device=cuda, requires_grad=True)
-    with pytest.raises(RuntimeError, match="training slice"):
-        seg_pool(x, torch.zeros(64, dtype=torch.int32, device=cuda), "max")
-    with pytest.raises(RuntimeError, match="training slice"):
-        row_shift_blocks(torch.randn((4, 8, 4), device=cuda, requires_grad=True),
-                         torch.zeros((4, 2), device=cuda), 2)
+@pytest.mark.parametrize("op", ["max", "sum"])
+@pytest.mark.parametrize("n,c", [(1500, 32), (90000, 32), (777, 9)])
+def test_seg_pool_backward_kernel_matches_plain(cuda, op, n, c):
+    """The gradient through SegPool launches K1 once (sum over the [N, 2C]
+    pack for max) and matches the plain gradient within 1e-5 of the
+    segment's sum of |g|; for max it is exactly zero off the tie set.
+    Integer-valued x forces ties."""
+    x, ids = _k1_case(5, n=n, c=c, tail=n // 3)
+    x[: n - n // 3] = np.round(x[: n - n // 3] * 2)
+    g = np.random.default_rng(6).standard_normal((n, c)).astype(np.float32)
+    xt, it, gt = (torch.from_numpy(a).to(cuda) for a in (x, ids, g))
+    xt.requires_grad_(True)
+    y = seg_pool(xt, it, op)
+    before = seg_pool_backward.launches
+    y.backward(gt)
+    assert seg_pool_backward.launches == before + 1
+    xd = xt.detach()
+    want = seg_pool_backward_plain(xd, it, seg_pool_plain(xd, it, op), gt, op)
+    abs_sum = seg_pool_plain(gt.abs(), it, "sum")
+    assert bool(((xt.grad - want).abs() <= 1e-5 * abs_sum + 1e-6).all())
+    if op == "max":
+        off = xd != seg_pool_plain(xd, it, "max")
+        assert bool((xt.grad[off] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,r,w,c", [(1, 16, 32, 8), (5, 288, 288, 32)])
+def test_row_shift_backward_kernel_matches_plain(cuda, nb, r, w, c):
+    """The gradient through RowShiftBlocks is one K2 launch at -shifts."""
+    img, shifts = _row_shift_case(7, nb, r=r, w=w, c=c)
+    g = np.random.default_rng(8).standard_normal(img.shape).astype(np.float32)
+    it, st, gt = (torch.from_numpy(a).to(cuda) for a in (img, shifts, g))
+    it.requires_grad_(True)
+    out = row_shift_blocks(it, st, nb)
+    before = row_shift_blocks_backward.launches
+    out.backward(gt)
+    assert row_shift_blocks_backward.launches == before + 1
+    k = torch.floor(-st)
+    want = row_shift_blocks_plain(gt, k.clamp(-w, w).to(torch.int32), (-st - k), nb)
+    torch.testing.assert_close(it.grad, want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.cuda

@@ -278,7 +278,9 @@ def test_port_imports_no_jax():
     assert not found, found
     code = ("import sys, pcaccumulation_tpu_torch, pcaccumulation_tpu_torch.utils.weights, "
             "pcaccumulation_tpu_torch.kernels.build, pcaccumulation_tpu_torch.data.dataset, "
-            "pcaccumulation_tpu_torch.data.loader, pcaccumulation_tpu_torch.config; "
+            "pcaccumulation_tpu_torch.data.loader, pcaccumulation_tpu_torch.config, "
+            "pcaccumulation_tpu_torch.train.trainer, pcaccumulation_tpu_torch.main, "
+            "pcaccumulation_tpu_torch.profile_forward; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pcaccumulation_tpu')], sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
