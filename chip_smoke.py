@@ -4,11 +4,21 @@
 
 Builds the port's CUDA kernels from `pcaccumulation_tpu_torch/csrc/`, holds
 each kernel and each kernel's gradient against its plain PyTorch version on
-the card, then drives the two paths of the port at the full default config
+the card (K1 seg_pool, K2 row_shift_blocks, K3 row_shift through warp_bev /
+warp_bev_batch, K4 nn at the ICP shapes, and the Chamfer distance on K4),
+then drives the paths of the port at the full default config
 (configs/default.yaml: T=5, 288x288 BEV, 90k points, 30k pillars, float32)
 with seeded random weights on synthetic scenes:
 - the val-mode MotionNet forward (B=1): held against the CPU's forward on
   the same weights and batch, kernel launches counted, timed;
+- the test-mode forward (B=1) with the ego and instance ICPs on at 50
+  iterations: finite, rigid poses, launches counted, timed with the share
+  of clustering and ICP; at 3 iterations held against the CPU with the
+  card's cluster labels injected, and the clusterer held against the CPU's
+  on the card's inputs (pair agreement);
+- the Tester over the 3 test scenes of data/synthetic (configs/
+  synthetic.yaml, both ICPs on) into a temporary directory, the dumps'
+  schema checked and read by the port's evaluation;
 - the training micro-step through the port's Trainer (B=4, iter_size 2,
   random keypoint draw): FuseLoss, backward, optimizer; loss terms finite,
   parameters moved, kernel launches counted, timed, peak memory; and the
@@ -22,6 +32,7 @@ CUDA device it exits 1 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -168,6 +179,436 @@ def leaf_criterion(grads_a: dict, grads_b: dict) -> tuple[int, int, float, float
     return checked, noise, worst[0], worst[1], worst[2]
 
 
+def nn_tolerance(a: torch.Tensor, b: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-query d2 tolerance of K4 against its plain version: the plain
+    version expands |a|^2 + |b|^2 - 2 a.b, whose float32 error is a few
+    ulp of |a|^2 + |b|^2 (2.4e-4 at 50 m from the origin); the kernel's
+    difference form is exact to ~1 ulp of d2."""
+    bn = torch.gather(b, 1, idx.long()[..., None].expand(a.shape))
+    return 2e-6 * ((a * a).sum(-1) + (bn * bn).sum(-1)) + 1e-7
+
+
+def check_nn(what: str, a, b, b_valid) -> tuple[float, int]:
+    """K4 against its plain version on the same inputs: distances within
+    `nn_tolerance`; the argmins equal except where the two candidates' exact
+    (float64) distances lie within it of each other, i.e. near ties that
+    the two roundings may order either way. Returns (max abs d2 error,
+    number of differing argmins)."""
+    from pcaccumulation_tpu_torch.kernels.chamfer import nn, nn_plain
+
+    d2, idx = nn(a, b, b_valid)
+    want_d, want_i = nn_plain(a, b, b_valid)
+    torch.cuda.synchronize()
+    tol = nn_tolerance(a, b, want_i)
+    has = b_valid.any(1)[:, None].expand_as(d2)  # problems with a valid reference
+    err = float((d2 - want_d).abs()[has].max()) if bool(has.any()) else 0.0
+    if not bool(((d2 - want_d).abs() <= tol)[has].all()):
+        fail(f"K4 {what}: distances differ from the plain version beyond the tolerance")
+    if not bool(((d2 == 1e30) & (idx == 0))[~has].all()):
+        fail(f"K4 {what}: a problem without valid references is not (1e30, 0)")
+
+    def exact(i):
+        nearest = torch.gather(b, 1, i.long()[..., None].expand(a.shape))
+        return ((a.double() - nearest.double()) ** 2).sum(-1)
+
+    differ = idx != want_i
+    if not bool(((exact(idx) - exact(want_i)).abs() <= tol)[differ].all()):
+        fail(f"K4 {what}: an argmin differs from the plain version's beyond a near tie")
+    return err, int(differ.sum())
+
+
+def k3_phase(dev, gen) -> dict:
+    """K3 through the public API: warp_bev on one [288, 288, 32] map and
+    warp_bev_batch on [4, 288, 288, 32], shear, ego-like poses; launches
+    counted; against the CPU (plain); the kernel against its plain version
+    on the warp's own shifts; timings at the warp_bev_batch shape."""
+    import math
+
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks_plain
+    from pcaccumulation_tpu_torch.ops.bilinear import _shear_params, warp_bev, warp_bev_batch
+
+    f, h, w, c = 4, 288, 288, 32
+    feats = torch.randn((f, h, w, c), generator=gen)
+    poses = torch.eye(4).repeat(f, 1, 1)
+    for i in range(f):  # yaw up to 0.2 rad, 1-4 m: an ego motion over a few frames
+        th = 0.05 * (i + 1)
+        poses[i, :2, :2] = torch.tensor([[math.cos(th), -math.sin(th)],
+                                         [math.sin(th), math.cos(th)]])
+        poses[i, :2, 3] = torch.tensor([1.0 + i, -0.5 * i])
+    args = (0.25, 0.25, -36.0, -36.0)
+    feats_d, poses_d = feats.to(dev), poses.to(dev)
+    row_shift.launches = 0
+    single = warp_bev(feats_d[1], poses_d[1], *args)
+    batch = warp_bev_batch(feats_d, poses_d, *args)
+    torch.cuda.synchronize()
+    launches = row_shift.launches
+    if launches != 6:
+        fail(f"K3: warp_bev + warp_bev_batch launched the kernel {launches}x (want 3 + 3)")
+    # against the CPU: each device computes the shear parameters from
+    # differences of pixel coordinates of ~144 px (float32 ulp ~1.5e-5 px),
+    # scaled by up to 287 rows, so the shifts differ by up to ~3e-3 px;
+    # times neighbour differences of up to ~6 for unit-normal features
+    err_s = float((single.cpu() - warp_bev(feats[1], poses[1], *args)).abs().max())
+    err_b = float((batch.cpu() - warp_bev_batch(feats, poses, *args)).abs().max())
+    if max(err_s, err_b) > 3e-2:
+        fail(f"K3: warp_bev on the card vs the CPU: {err_s:.2e}, batch {err_b:.2e} (tol 3e-2)")
+    # the kernel against its plain version on the same (first-pass) shifts
+    alpha, _, tx_p, ty_p = _shear_params(poses_d, *args, h, w)
+    rows = torch.arange(h, dtype=torch.float32, device=dev)
+    shifts = (alpha[:, None] * rows + (tx_p - alpha * ty_p)[:, None]).reshape(-1)
+    img = feats_d.reshape(f * h, w, c)
+    k = torch.floor(shifts)
+    ki = k.clamp(-w, w).to(torch.int32)[:, None]
+    fr = (shifts - k)[:, None]
+    got = row_shift(img, shifts)
+    want = row_shift_blocks_plain(img, ki, fr, 1)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if err > 1e-6:
+        fail(f"K3 row_shift differs from the plain version (max abs err {err})")
+    log(f"K3 row_shift: warp_bev [288, 288, 32] + warp_bev_batch [4, 288, 288, 32] launched "
+        f"{launches}x; card vs CPU max abs err {err_s:.2e} / {err_b:.2e} (tol 3e-2, shear "
+        f"parameters rounded per device); kernel vs plain on the warp's shifts "
+        f"[{f * h}, {w}, {c}]: {err:.2e} (tol 1e-6)")
+    # library yardstick: grid_sample, one x-only grid per row, [R, C, 1, W]
+    img_g = img.permute(0, 2, 1)[:, :, None, :].contiguous()
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :] + (ki.float() + fr)
+    grid = torch.stack([(2 * xs + 1) / w - 1, torch.zeros_like(xs)], -1)[:, None]
+    lib = torch.nn.functional.grid_sample(img_g, grid, mode="bilinear", padding_mode="zeros",
+                                          align_corners=False)
+    lib_err = float((lib[:, :, 0].permute(0, 2, 1) - want).abs().max())
+    if lib_err > 1e-3:
+        fail(f"the grid_sample yardstick does not compute row_shift (err {lib_err:.2e})")
+    bound, by = bound_ms(2 * img.numel() * 4 + ki.numel() * 8, 3 * img.numel())
+    return {
+        "name": "row_shift", "route": "cuda",
+        "source": "pcaccumulation_tpu_torch/csrc/row_shift.cu",
+        "replaces": "pcaccumulation_tpu/ops/bilinear.py:215",
+        "launches": launches, "max_abs_err": err,
+        "ms": cuda_ms(lambda: row_shift(img, shifts)),
+        "plain_ms": cuda_ms(lambda: row_shift_blocks_plain(img, ki, fr, 1)),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
+            img_g, grid, mode="bilinear", padding_mode="zeros", align_corners=False)),
+    }
+
+
+def k4_inputs(scene: dict, dev):
+    """The ego ICP's K4 call at the default config: 4 problems (frames 1-4
+    of one sample) of the sample's 90,000 points, moved by a small pose
+    each, against the same points with frame 0's valid ones as references."""
+    import math
+
+    pts = torch.from_numpy(scene["points"]).to(dev)
+    valid = torch.from_numpy(scene["point_valid"]).to(dev)
+    tid = torch.from_numpy(scene["time_idx"]).to(dev)
+    a = []
+    for t in range(1, 5):
+        th = 0.01 * t
+        rot = torch.tensor([[math.cos(th), -math.sin(th), 0.0], [math.sin(th), math.cos(th), 0.0],
+                            [0.0, 0.0, 1.0]], device=dev)
+        a.append(pts @ rot.T + torch.tensor([0.05 * t, -0.03 * t, 0.0], device=dev))
+    b_valid = (valid & (tid == 0))[None].expand(4, -1).contiguous()
+    return torch.stack(a), pts[None].expand(4, -1, -1).contiguous(), b_valid
+
+
+def k4_instance_inputs(gen, dev):
+    """The instance ICP's K4 call at the default config: 32 instance slots
+    x 4 frames = 128 problems of 1,024 points, objects of a few metres up to
+    ~50 m from the origin, a quarter of the references valid (frame 0),
+    exact duplicate references, and one problem without a valid one."""
+    a = torch.rand((128, 1024, 3), generator=gen) * 4 + torch.randn((128, 1, 3), generator=gen) * 25
+    b = a + 0.02 * torch.randn(a.shape, generator=gen)
+    b[:, 600:700] = b[:, 100:200]  # duplicates: the lower index wins
+    valid = torch.rand((128, 1024), generator=gen) < 0.25
+    valid[:, 100:200] = valid[:, 600:700] = True
+    valid[5] = False
+    return a.to(dev), b.to(dev), valid.to(dev)
+
+
+def k4_phase(dev, gen, scene: dict) -> dict:
+    """K4 against its plain version at both ICP shapes; timings, bound and
+    the library yardstick (torch.cdist + min, TF32 off) at the ego shape."""
+    from pcaccumulation_tpu_torch.kernels.chamfer import nn, nn_plain
+
+    a, b, b_valid = k4_inputs(scene, dev)
+    err_e, diff_e = check_nn("ego shape", a, b, b_valid)
+    ai, bi, vi = k4_instance_inputs(gen, dev)
+    err_i, diff_i = check_nn("instance shape", ai, bi, vi)
+    _, idx_i = nn(ai, bi, vi)
+    if bool(((idx_i >= 600) & (idx_i < 700)).any()):  # exact copies of refs 100-199
+        fail("K4: a duplicated reference resolved to the higher index")
+    m_valid = int(b_valid[0].sum())
+    log(f"K4 nn ego shape [4, 90000] queries x {m_valid} valid of 90000 refs: max |d2 err| "
+        f"{err_e:.2e}, {diff_e} argmins differ at near ties (of {a.shape[0] * a.shape[1]}); "
+        f"instance shape [128, 1024] x [128, 1024] (a quarter valid, duplicates, one empty "
+        f"problem): max |d2 err| {err_i:.2e}, {diff_i} near-tie argmins differ")
+    p, n, _ = a.shape
+    bound, by = bound_ms(p * n * 12 + p * b.shape[1] * 13 + p * n * 8, 8.0 * p * n * m_valid)
+    # the library call computes the same function on the valid references
+    b_lib = b[b_valid].reshape(p, m_valid, 3)
+    torch.cuda.empty_cache()
+    lib_ms = cuda_ms(lambda: torch.cdist(a, b_lib).min(-1), iters=3, warmup=1)
+    entry = {
+        "name": "nn", "route": "cuda", "source": "pcaccumulation_tpu_torch/csrc/nn.cu",
+        "replaces": "pcaccumulation_tpu/kernels/chamfer.py:88",
+        "launches": 0, "max_abs_err": max(err_e, err_i),
+        "ms": cuda_ms(lambda: nn(a, b, b_valid), iters=10),
+        "plain_ms": cuda_ms(lambda: nn_plain(a, b, b_valid), iters=2, warmup=1),
+        "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+    }
+    ms_i = cuda_ms(lambda: nn(ai, bi, vi))
+    plain_i = cuda_ms(lambda: nn_plain(ai, bi, vi))
+    bound_i, _ = bound_ms(128 * 1024 * 33, 8.0 * 1024 * int(vi.sum()))
+    log(f"K4 nn instance shape: {ms_i:.4f} ms (bound {bound_i:.4f} ms; plain {plain_i:.4f} ms)")
+    return entry
+
+
+def chamfer_phase(dev, gen) -> None:
+    """chamfer_distance forward and gradient on the card (two K4 launches)
+    against the CPU (the plain nearest neighbour): two jittered 20^3 grids,
+    0.5 m apart, 30 m from the origin, so that every nearest neighbour is
+    clear of the others."""
+    from pcaccumulation_tpu_torch.kernels.chamfer import chamfer_distance, nn
+
+    g = torch.stack(torch.meshgrid(*[torch.arange(20.0)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    a = (g * 0.5 + 30.0 + (torch.rand(g.shape, generator=gen) - 0.5) * 0.1)[None]
+    b = (g * 0.5 + 30.0 + (torch.rand(g.shape, generator=gen) - 0.5) * 0.1)[None]
+    valid = torch.ones(a.shape[:2], dtype=torch.bool)
+    res = {}
+    before = nn.launches
+    for where in ("cpu", dev):
+        ta = a.to(where, copy=True).requires_grad_(True)
+        tb = b.to(where, copy=True).requires_grad_(True)
+        da, db = chamfer_distance(ta, tb, valid.to(where), valid.to(where))
+        (da.sum() + 2.0 * db.sum()).backward()
+        res[str(where)] = [x.detach().cpu() for x in (da, db, ta.grad, tb.grad)]
+    if nn.launches != before + 2:
+        fail(f"chamfer_distance launched K4 {nn.launches - before}x (want 2)")
+    errs = [float((x - y).abs().max()) for x, y in zip(res["cuda"], res["cpu"])]
+    # distances: the plain expansion's rounding at |a|^2 ~ 4000; gradients:
+    # the same argmins, so the same differences, summed in another order
+    if errs[0] > 5e-3 or errs[1] > 5e-3 or errs[2] > 1e-5 or errs[3] > 1e-5:
+        fail(f"chamfer_distance card vs CPU: distances {errs[:2]}, gradients {errs[2:]}")
+    log(f"chamfer_distance [8000] x [8000] card vs CPU: distances max abs err {max(errs[:2]):.2e} "
+        f"(tol 5e-3), gradients {max(errs[2:]):.2e} (tol 1e-5); 2 K4 launches")
+
+
+def pair_agreement(x: np.ndarray, y: np.ndarray) -> float:
+    """Share of point pairs on which two labelings (0 = no cluster) agree
+    about being in one cluster (the Rand index over the labelled pairs)."""
+    n = len(x)
+    if n < 2:
+        return 1.0
+
+    def same(lab):
+        cnt = np.bincount(lab[lab != 0])
+        return float((cnt * (cnt - 1) / 2).sum())
+
+    both = (x != 0) & (y != 0)
+    joint = x[both].astype(np.int64) * (int(y.max()) + 1) + y[both]
+    cnt = np.bincount(joint)
+    disagree = same(x) + same(y) - 2 * float((cnt * (cnt - 1) / 2).sum())
+    return 1.0 - disagree / (n * (n - 1) / 2)
+
+
+def test_path_phase(port, cfg_base: dict, weights: dict, batches: list, smi: str):
+    """The test-mode forward at the default config with both ICPs at 50
+    iterations; then at 3 iterations the card against the CPU with the
+    card's labels injected, and the clusterer against the CPU's. Returns
+    (K4 launches on the path, median forward ms)."""
+    from pcaccumulation_tpu_torch.kernels.chamfer import nn
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
+    from pcaccumulation_tpu_torch.ops.cluster import cluster_moving_points
+    from pcaccumulation_tpu_torch.profile_forward import (
+        NESTED,
+        _with_stage_events,
+        test_mode_config,
+    )
+
+    iters = 50
+    cfg = test_mode_config(dict(cfg_base, pose_estimation=dict(cfg_base["pose_estimation"]),
+                                tpointnet=dict(cfg_base["tpointnet"])), iters)
+    model = port.build_model(cfg)
+    model.load_state_dict(weights)
+    n_fwd = len(batches)
+    seg_pool.launches = row_shift_blocks.launches = nn.launches = row_shift.launches = 0
+    with torch.no_grad():
+        outs = [model(bt, mode="test") for bt in batches]
+    torch.cuda.synchronize()
+    counts = {"K1": seg_pool.launches, "K2": row_shift_blocks.launches, "K4": nn.launches,
+              "K3": row_shift.launches}
+    want = {"K1": 2 * n_fwd, "K2": 3 * n_fwd, "K4": 2 * iters * n_fwd, "K3": 0}
+    if counts != want:
+        fail(f"kernel launches on the test path: {counts} for {n_fwd} forwards (want {want}: "
+             f"K4 once per ego and per instance ICP iteration)")
+    n_inst = []
+    for i, out in enumerate(outs):
+        for key, v in out.items():
+            if torch.is_tensor(v) and v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                fail(f"test path, scene {i}: non-finite {key}")
+        det_ego = torch.linalg.det(out["ego_motion_est"][..., :3, :3].double())
+        labels = out["inst_labels_est"][0]
+        slots = torch.unique(labels[labels > 0])
+        det_inst = torch.linalg.det(out["inst_pose_est"][0, slots][..., :3, :3].double())
+        worst = float(torch.cat([det_ego.reshape(-1), det_inst.reshape(-1)]).sub(1).abs().max())
+        if worst > 1e-4:
+            fail(f"test path, scene {i}: a pose is not a rotation (|det - 1| = {worst:.2e})")
+        n_inst.append(len(slots))
+    log(f"test path: {n_fwd} test-mode forwards (both ICPs, {iters} iterations) launched "
+        + ", ".join(f"{k} {v}x" for k, v in counts.items())
+        + f"; instances found {n_inst}; all outputs finite, |det - 1| <= 1e-4 for the ego "
+        f"poses and the occupied instance slots")
+
+    with torch.no_grad():
+        for bt in batches:
+            model(bt, mode="test")
+        times = []
+        for i in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            model(batches[i % n_fwd], mode="test")
+            end.record()
+            times.append(sync_ms(start, end))
+        stages = _with_stage_events(lambda i: model(batches[i % n_fwd], mode="test"), 3)
+    fwd_ms = statistics.median(times)
+    total = sum(v for k, v in stages.items() if k not in NESTED)
+    share = {k: stages.get(k, 0.0) / total for k in ("cluster", "icp_ego", "icp_instance")}
+    log(f"test forward (B=1, default config, both ICPs at {iters} iterations, CUDA events): "
+        f"median {fwd_ms:.3f} ms of 5 ({', '.join(f'{t:.3f}' for t in times)}) on {smi}; "
+        f"stage ms (median of 3): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+        + "; share of the stage sum: " + ", ".join(f"{k} {v:.3f}" for k, v in share.items()))
+
+    # the card against the CPU at 3 iterations, the card's labels injected
+    t0 = time.perf_counter()
+    cfg3 = test_mode_config(dict(cfg, pose_estimation=dict(cfg["pose_estimation"]),
+                                 tpointnet=dict(cfg["tpointnet"])), 3)
+    gpu_model = port.build_model(cfg3)
+    gpu_model.load_state_dict(weights)
+    cpu_model = port.build_model(cfg3, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    bt = batches[0]
+    with torch.no_grad():
+        gpu = gpu_model(bt, mode="test")
+        labels = gpu["inst_labels_est"]
+        cpu = cpu_model({k: v.cpu() for k, v in bt.items()}, mode="test",
+                        inst_labels_override=labels.cpu())
+    gpu = {k: v.cpu() for k, v in gpu.items() if torch.is_tensor(v)}
+    same_fg = gpu["fb_mask"] == cpu["fb_mask"]
+    flips = int((~same_fg).sum())
+    # float32, TF32 off; the card's convolutions, reductions and nearest
+    # neighbours round otherwise than the CPU's (a near tie or a point at the
+    # ICP threshold may go the other way)
+    tol = {"fb_seg_est": 1e-3, "ego_motion_est": 1e-3, "transformed_points": 1e-2,
+           "mos_est": 1e-2, "offset_est": 1e-2}
+    errs = {}
+    for key, t in tol.items():
+        d = (gpu[key] - cpu[key]).abs()
+        if key in ("mos_est", "offset_est"):
+            d = d[same_fg]  # a flipped FB decision changes which rows are decoded
+        errs[key] = float(d.max())
+        if errs[key] > t:
+            fail(f"test path GPU vs CPU {key}: max abs err {errs[key]:.3e} > {t}")
+    if flips > max(1, int(bt["point_valid"].sum()) // 1000):
+        fail(f"test path: {flips} FB decisions differ between GPU and CPU")
+    # the instance ICP starts from the random TPointNet's poses (random
+    # rotations about the centroid); a slice of a few dozen points then has
+    # a handful of pairs within the threshold, and one pair more or less (a
+    # near tie, a point at the threshold) moves its Kabsch update far. Held
+    # per (instance, frame): every slice with 100 or more points in both
+    # frames within 1e-2, at least 85 % of all slices, 99 % of the points
+    valid_pts = bt["point_valid"][0].cpu()
+    lab0 = labels[0].cpu()
+    tid0 = bt["time_idx"][0].cpu().long()
+    occ = torch.unique(lab0[(lab0 > 0) & valid_pts])
+    t_frames = gpu["inst_pose_est"].shape[2]
+    dpose = (gpu["inst_pose_est"][0, occ, 1:]
+             - cpu["inst_pose_est"][0, occ, 1:]).abs().amax((-1, -2))
+    pose_ok = dpose <= 1e-2
+    slice_pts = torch.bincount(lab0[valid_pts].long() * t_frames + tid0[valid_pts],
+                               minlength=(int(lab0.max()) + 1) * t_frames).reshape(-1, t_frames)
+    bad = [(int(occ[i]), int(j) + 1, round(float(dpose[i, j]), 4), int(slice_pts[occ[i], 0]),
+            int(slice_pts[occ[i], j + 1]))
+           for i, j in zip(*torch.nonzero(~pose_ok, as_tuple=True))]
+    rec_share = float(((gpu["rec_est"] - cpu["rec_est"]).abs().amax(-1)[0]
+                       <= 1e-2)[valid_pts].float().mean())
+    pose_share = float(pose_ok.float().mean()) if pose_ok.numel() else 1.0
+    if any(min(n0, nt) >= 100 for *_, n0, nt in bad) or pose_share < 0.85 or rec_share < 0.99:
+        fail(f"test path instance ICP GPU vs CPU: {pose_share:.3f} of the (instance, frame) "
+             f"poses and {rec_share:.4f} of the points within 1e-2; differing: {bad}")
+    # the clusterer on the CPU, on the card's inputs
+    ccfg = cfg["cluster"]
+    valid = bt["point_valid"][0].cpu()
+    moving = torch.argmax(gpu["mos_est"][0], -1) == 1
+    lab_cpu = cluster_moving_points(
+        gpu["transformed_points"][0], gpu["offset_est"][0], moving, valid,
+        eps=ccfg["eps_dbscan"], min_samples=ccfg["min_samples_dbscan"],
+        min_cluster_size=ccfg["min_p_cluster"], pre_voxel=0.05,
+        max_cluster_points=ccfg["max_cluster_points"], n_iters=ccfg["bfs_iters"])
+    k_cap = bt["inst_motion_gt"].shape[1]
+    lab_cpu = torch.where(lab_cpu < k_cap, lab_cpu, 0)
+    sel = (moving & valid).numpy()
+    agree = pair_agreement(labels[0].cpu().numpy()[sel], lab_cpu.numpy()[sel])
+    if agree < 0.99:
+        fail(f"clustering: card vs CPU pair agreement {agree:.6f} < 0.99")
+    log(f"test path GPU vs CPU (3 ICP iterations, card's labels injected): "
+        + ", ".join(f"{k} {v:.2e} (tol {tol[k]})" for k, v in errs.items())
+        + f"; FB decisions flipped {flips}; instance ICP: {int(pose_ok.sum())} of "
+        f"{pose_ok.numel()} (instance, frame) poses within 1e-2, {rec_share:.6f} of the points' "
+        f"rec_est; the others (slot, frame, max |d pose|, points in frame 0, in frame t), all "
+        f"under 100 points: {bad}; clustering of {int(sel.sum())} moving points on the "
+        f"card vs the CPU: pair agreement {agree:.6f}, labels equal "
+        f"{bool(torch.equal(labels[0].cpu(), lab_cpu))} ({time.perf_counter() - t0:.1f} s)")
+    return counts["K4"], fwd_ms
+
+
+def tester_phase(port) -> None:
+    """The Tester on configs/synthetic.yaml with both ICPs on over the 3 test
+    scenes of data/synthetic, into a temporary directory; the dumps' schema;
+    the port's evaluation over them."""
+    from pcaccumulation_tpu_torch import evaluation
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.profile_forward import test_mode_config
+    from pcaccumulation_tpu_torch.train.tester import DUMP_KEYS, Tester
+
+    t0 = time.perf_counter()
+    cfg = test_mode_config(load_config("configs/synthetic.yaml"))
+    cfg["misc"]["exp_name"] = "chip_smoke"
+    torch.manual_seed(SEED)
+    model = port.build_model(cfg)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_test_")
+    try:
+        root = f"{tmp}/results/chip_smoke"
+        Tester(cfg, model, save_dir=f"{tmp}/run", results_dir=root).test()
+        dtypes = {"fb_label": np.bool_, "sd_label": np.bool_, "epe_per_point": np.float16,
+                  "relative_error": np.float16, "time_indice": np.int8}
+        scenes = sorted(os.listdir(root))
+        if len(scenes) != 3:
+            fail(f"Tester: dumps for {scenes}, want the 3 test scenes")
+        n_pts = []
+        for scene in scenes:
+            with np.load(f"{root}/{scene}/flow_error.npz") as d:
+                if set(d.files) != set(DUMP_KEYS):
+                    fail(f"Tester {scene}: keys {sorted(d.files)}")
+                n = d["epe_per_point"].shape[0]
+                for k in DUMP_KEYS:
+                    if d[k].dtype != dtypes[k] or d[k].shape != (n,):
+                        fail(f"Tester {scene}: {k} {d[k].dtype} {d[k].shape}")
+                if n == 0 or d["time_indice"].min() < 1 \
+                        or not np.isfinite(d["epe_per_point"].astype(np.float64)).all():
+                    fail(f"Tester {scene}: empty, anchor frame kept or non-finite epe")
+                n_pts.append(n)
+        if evaluation.main(["evaluation", root, "synthetic"]) != 0:
+            fail("the port's evaluation failed on the Tester's dumps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"Tester: 3 test scenes of data/synthetic (both ICPs, 50 iterations) dumped "
+        f"{n_pts} points with the reference schema; the port's evaluation read them "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -186,7 +627,7 @@ def main() -> None:
         seg_pool_backward_plain,
         seg_pool_plain,
     )
-    from pcaccumulation_tpu_torch.profile_forward import default_scenes
+    from pcaccumulation_tpu_torch.profile_forward import calibrate_heads, default_scenes
 
     # ---- 1. device --------------------------------------------------------
     dev = torch.device("cuda")
@@ -202,7 +643,8 @@ def main() -> None:
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, both sources in parallel)")
+    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, one process per source, "
+        f"in parallel)")
 
     gen = torch.Generator().manual_seed(SEED)
     kernels = {}
@@ -375,6 +817,21 @@ def main() -> None:
     fwd_ms = statistics.median(times)
     log(f"val forward (B=1, default config, CUDA events): median {fwd_ms:.3f} ms of 10 "
         f"(min {min(times):.3f}, max {max(times):.3f}) on {smi}")
+
+    # ---- 6b. K3, K4 and the Chamfer distance vs plain -------------------------
+    k3_entry = k3_phase(dev, gen)
+    k4_entry = k4_phase(dev, gen, scenes[0])
+    chamfer_phase(dev, gen)
+
+    # ---- 6c. test path: the test-mode forward with both ICPs ---------------
+    fg_share, mov_share = calibrate_heads(model, batches[0])  # the test path's weights
+    log(f"test path weights: the FB and MOS heads' class-1 biases set so that "
+        f"{fg_share:.4f} of the pillars are FG and {mov_share:.4f} of the decoded rows move "
+        f"(scene 0's label shares)")
+    k4_entry["launches"], test_ms = test_path_phase(port, cfg, model.state_dict(), batches, smi)
+
+    # ---- 6d. the Tester and the evaluation on data/synthetic ----------------
+    tester_phase(port)
 
     # ---- 7. train path: the Trainer's micro-step at full width --------------
     from pcaccumulation_tpu_torch.train.loss import fuse_loss
@@ -603,12 +1060,15 @@ def main() -> None:
         "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
             g2_g, grid_b, mode="bilinear", padding_mode="zeros", align_corners=False)),
     }
+    kernels["row_shift"] = k3_entry
+    kernels["nn"] = k4_entry
     for kern in kernels.values():
         log(f"{kern['name']}: {kern['ms']:.4f} ms (bound {kern['bound_ms']:.4f} ms by "
             f"{kern['bound_by']}; plain {kern['plain_ms']:.4f} ms; library "
             f"{kern['library_ms']})")
     log(f"grid_sample yardstick max abs err vs plain: {lib_err:.2e}")
-    log(f"forward_ms {fwd_ms:.3f} train_micro_step_ms {micro_med:.3f} "
+    log(f"forward_ms {fwd_ms:.3f} test_forward_ms {test_ms:.3f} "
+        f"train_micro_step_ms {micro_med:.3f} "
         f"train_update_ms {statistics.median(update_ms):.3f} train_peak_gib {peak_gib:.3f} "
         f"on {smi}")
 

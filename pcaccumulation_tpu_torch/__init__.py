@@ -1,11 +1,13 @@
 """PyTorch/CUDA port of pcaccumulation_tpu for one NVIDIA H100.
 
-The val-mode MotionNet forward and training (train/trainer.py, main.py) at
-the default config, with hand-written CUDA kernels, and gradients that
-launch them, for the segment pool (kernels/segscan.py) and the shear-warp
-row shift (kernels/row_shift.py). Entry points run on the card unless the
-caller asks for the CPU with `device="cpu"`; without a CUDA device they
-raise instead of falling back.
+The MotionNet forward in train, val and test mode, training
+(train/trainer.py) and the test path (train/tester.py, evaluation.py), all
+driven by main.py, at the default config, with hand-written CUDA kernels,
+and gradients that launch them, for the segment pool (kernels/segscan.py),
+the shear-warp row shift (kernels/row_shift.py) and the nearest neighbour
+of ICP and the Chamfer distance (kernels/chamfer.py). Entry points run on
+the card unless the caller asks for the CPU with `device="cpu"`; without a
+CUDA device they raise instead of falling back.
 """
 
 from __future__ import annotations

@@ -110,16 +110,23 @@ def prep_sample(data: dict, cfg: dict, augment: bool = False,
 
 class SceneDataset:
     """File-list dataset over preprocessed .npz samples: `<split>_info.txt`
-    under the base directory lists their relative paths. Training samples
-    are augmented."""
+    under the base directory lists their relative paths; a sample's scene
+    is the first directory of its path, and `scene_name` keeps one scene's
+    samples (the test mode's per-scene loop). Training samples are
+    augmented."""
 
     def __init__(self, cfg: dict, split: str, augment: bool | None = None,
-                 base_dir: str | None = None):
+                 base_dir: str | None = None, scene_name: str | None = None):
         self.cfg = cfg
         self.base = base_dir or cfg["path"]["dataset_base"]
         self.augment = augment if augment is not None else (split == "train")
         with open(os.path.join(self.base, f"{split}_info.txt")) as f:
             self.infos = [line.strip() for line in f if line.strip()]
+        if scene_name is not None:
+            self.infos = [p for p in self.infos if p.split(os.sep)[0] == scene_name]
+
+    def scenes(self) -> list[str]:
+        return sorted({p.split(os.sep)[0] for p in self.infos})
 
     def __len__(self):
         return len(self.infos)

@@ -34,6 +34,9 @@ SIGNATURES = {
     "row_shift": {
         "row_shift_blocks_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
     },
+    "nn": {
+        "nn_forward": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _P],
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,5 @@
-"""Per-(row, channel block) row shift: kernel K2, its gradient and their
-plain version.
+"""Per-(row, channel block) row shift: kernels K2 and K3, their gradients
+and their plain version.
 
 `row_shift_blocks(img, shifts, n_blocks)` shifts each row of img
 [R, W, n_blocks*C] along W by a fractional amount that differs per channel
@@ -10,10 +10,16 @@ canvas. On a CUDA tensor it launches the kernel of `csrc/row_shift.cu`
 `pcaccumulation_tpu/ops/bilinear.py::_row_shift_blocks_pallas`); on a CPU
 tensor it runs `row_shift_blocks_plain`.
 
-Its gradient (`RowShiftBlocks`) is the JAX package's custom VJP
-(`ops/bilinear.py::_make_row_shift_blocks`): the same kernel at -shifts
-for the image, zero for the shifts. That is not the exact transpose of the
-lerp at the row ends, and the port follows JAX, not autograd.
+`row_shift(img, shifts)` is the same with one shift per row: the TPU kernel
+`ops/bilinear.py::_row_shift_pallas` (K3), behind `warp_bev` and
+`warp_bev_batch`. On the card it launches the same kernel at n_blocks=1,
+counted on its own (`row_shift.launches`).
+
+Their gradient (`RowShift`) is the JAX package's custom VJP
+(`ops/bilinear.py::_make_row_shift_blocks`, `_row_shift_sample`): the same
+kernel at -shifts for the image, zero for the shifts. That is not the exact
+transpose of the lerp at the row ends, and the port follows JAX, not
+autograd.
 """
 
 from __future__ import annotations
@@ -81,12 +87,23 @@ def row_shift_blocks_backward(g: torch.Tensor, shifts: torch.Tensor,
     return out
 
 
-class RowShiftBlocks(torch.autograd.Function):
+def row_shift_backward(g: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """Gradient of `row_shift` for the image: the shift at -shifts [R, 1]."""
+    out, launched = _shift(g, -shifts, 1)
+    row_shift_backward.launches += launched
+    return out
+
+
+class RowShift(torch.autograd.Function):
+    """A row shift with the JAX package's gradient. `counted` is the public
+    wrapper whose launch count the forward adds to; `backward_fn(g, shifts)`
+    is the gradient wrapper (with its own count)."""
+
     @staticmethod
-    def forward(ctx, img, shifts, n_blocks):
+    def forward(ctx, img, shifts, n_blocks, counted, backward_fn):
         out, launched = _shift(img, shifts, n_blocks)
-        row_shift_blocks.launches += launched
-        ctx.n_blocks = n_blocks
+        counted.launches += launched
+        ctx.backward_fn = backward_fn
         ctx.save_for_backward(shifts)
         return out
 
@@ -94,8 +111,17 @@ class RowShiftBlocks(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         (shifts,) = ctx.saved_tensors
-        return (row_shift_blocks_backward(g, shifts, ctx.n_blocks),
-                torch.zeros_like(shifts), None)
+        return ctx.backward_fn(g, shifts), torch.zeros_like(shifts), None, None, None
+
+
+def _check(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int, what: str) -> None:
+    r, w, ctot = img.shape
+    if ctot % n_blocks or shifts.shape != (r, n_blocks):
+        raise ValueError(f"{what}: img {tuple(img.shape)}, shifts {tuple(shifts.shape)}, "
+                         f"n_blocks {n_blocks}")
+    if img.device.type != "cpu" and (img.device.type != "cuda"
+                                     or shifts.device != img.device):
+        raise ValueError(f"{what}: img on {img.device}, shifts on {shifts.device}")
 
 
 def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
@@ -104,17 +130,22 @@ def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> 
     The shift splits into k = floor(s), clipped to [-W, W] (|rotation| <=
     90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
     a CUDA tensor goes to the kernel or raises. The kernel rounds as the
-    plain version does. Differentiable in img through `RowShiftBlocks`.
+    plain version does. Differentiable in img through `RowShift`.
     """
-    r, w, ctot = img.shape
-    if ctot % n_blocks or shifts.shape != (r, n_blocks):
-        raise ValueError(f"row_shift_blocks: img {tuple(img.shape)}, shifts "
-                         f"{tuple(shifts.shape)}, n_blocks {n_blocks}")
-    if img.device.type != "cpu" and (img.device.type != "cuda"
-                                     or shifts.device != img.device):
-        raise ValueError(f"row_shift_blocks: img on {img.device}, shifts on {shifts.device}")
-    return RowShiftBlocks.apply(img, shifts, n_blocks)
+    _check(img, shifts, n_blocks, "row_shift_blocks")
+    return RowShift.apply(img, shifts, n_blocks, row_shift_blocks,
+                          lambda g, s: row_shift_blocks_backward(g, s, n_blocks))
+
+
+def row_shift(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """img [R, W, C] float32; shifts [R] float: out[r, j] = img[r, j + s_r]
+    with linear interpolation, zeros outside the row (`row_shift_blocks`
+    with one block; K3's own launch count)."""
+    _check(img, shifts[:, None], 1, "row_shift")
+    return RowShift.apply(img, shifts[:, None], 1, row_shift, row_shift_backward)
 
 
 row_shift_blocks.launches = 0  # forward kernel launches (one per call that reached the card)
 row_shift_blocks_backward.launches = 0  # gradient kernel launches
+row_shift.launches = 0  # K3: forward launches at one shift per row
+row_shift_backward.launches = 0

@@ -2,12 +2,14 @@
 
     python -m pcaccumulation_tpu_torch.main <config.yaml> <batch_size> <iter_size> [--a.b.c=value ...]
 
-Modes (--misc.mode=train|val):
+Modes (--misc.mode=train|val|test):
   train: the training loop with per-epoch validation and rolling checkpoints
   val:   one validation epoch
-The test mode is a later slice of the port. It runs on the card unless
---misc.device=cpu is given. The run directory is snapshot/<misc.exp_name>
-under the working directory.
+  test:  per-scene flow_error.npz dumps under results/<misc.exp_name> and the
+         MOS / cluster evaluation (then: python -m
+         pcaccumulation_tpu_torch.evaluation results/<exp_name> <dataset>)
+It runs on the card unless --misc.device=cpu is given. The run directory is
+snapshot/<misc.exp_name> under the working directory.
 """
 
 from __future__ import annotations
@@ -55,8 +57,8 @@ def main(argv: list[str]) -> int:
     cfg["train"]["batch_size"] = batch_size
     cfg["train"]["iter_size"] = iter_size
     mode = cfg["misc"]["mode"]
-    if mode not in ("train", "val"):
-        raise NotImplementedError(f"mode={mode!r}: the test mode is a later slice of the port")
+    if mode not in ("train", "val", "test"):
+        raise ValueError(f"mode={mode!r}: train, val or test")
     setup_seed(cfg["misc"]["seed"])
 
     save_dir = os.path.join("snapshot", cfg["misc"]["exp_name"])
@@ -64,10 +66,16 @@ def main(argv: list[str]) -> int:
     save_config(cfg, os.path.join(save_dir, "config.json"))
     snapshot_source(save_dir)
 
-    from pcaccumulation_tpu_torch.train.trainer import Trainer
-
     device = cfg["misc"].get("device")
     model = build_model(cfg, device)
+    if mode == "test":
+        from pcaccumulation_tpu_torch.train.tester import Tester
+
+        Tester(cfg, model, save_dir=save_dir, device=device).test()
+        return 0
+
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
     trainer = Trainer(cfg, model, build_loaders(cfg), save_dir=save_dir, device=device)
     if mode == "train":
         trainer.train()

@@ -1,6 +1,7 @@
 """Ego-motion head: keypoint draw, soft correspondences (Sinkhorn) and
-weighted Kabsch over all frame pairs at once (the port of the JAX
-package's `models/egomotion.py`; `seq_pose: skip` only).
+weighted Kabsch over all frame pairs at once, then optionally the ego-pose
+ICP refinement (the port of the JAX package's `models/egomotion.py`;
+`seq_pose: skip` only).
 
 The keypoint draw takes n_kpts background pillars per (batch, frame):
 - deterministic: the first n_kpts in (y, x) BEV scan order, a shortfall
@@ -15,8 +16,10 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from pcaccumulation_tpu_torch.ops import se3
+from pcaccumulation_tpu_torch.ops.icp import refine_ego_poses
 from pcaccumulation_tpu_torch.ops.kabsch import weighted_kabsch
 from pcaccumulation_tpu_torch.ops.numeric import safe_norm
 from pcaccumulation_tpu_torch.ops.sinkhorn import log_sinkhorn, square_distance
@@ -48,12 +51,13 @@ class EgoMotionHead(nn.Module):
     def __init__(self, n_kpts: int = 1024, sinkhorn_iter: int = 3, slack: bool = True,
                  n_sweeps: int = 5, freq: float = 10.0, max_speed: float = 20.0,
                  seq_pose: str = "skip", deterministic_sampling: bool = False,
-                 icp: bool = False):
+                 icp: bool = False, icp_threshold: float = 0.15, icp_max_iter: int = 50):
         super().__init__()
         if seq_pose != "skip":
             raise NotImplementedError(f"seq_pose={seq_pose!r}: only 'skip' is ported")
-        if icp:
-            raise NotImplementedError("ego-pose ICP refinement is not ported")
+        self.icp = icp
+        self.icp_threshold = icp_threshold
+        self.icp_max_iter = icp_max_iter
         self.n_kpts = n_kpts
         self.sinkhorn_iter = sinkhorn_iter
         self.slack = slack
@@ -66,12 +70,17 @@ class EgoMotionHead(nn.Module):
         self.beta = nn.Parameter(torch.tensor(-5.0))
 
     def forward(self, pillar_feats, pillar_mean, pillar_t, pillar_valid, pillar_bg,
-                ego_motion_gt, pillar_scan_key=None, generator=None) -> dict:
+                ego_motion_gt, pillar_scan_key=None, generator=None, points=None,
+                time_idx=None, point_valid=None, point_bg=None) -> dict:
         """pillar_feats [B, M, C] L2-normalised ego features at pillars;
         pillar_mean [B, M, 3]; pillar_t [B, M] frame of each pillar;
         pillar_valid, pillar_bg [B, M] bool; ego_motion_gt [B, T, 4, 4];
         pillar_scan_key [B, M] = y*W + x (deterministic draw);
-        generator: the random draw's torch.Generator."""
+        generator: the random draw's torch.Generator. With `icp` on and
+        point_bg given, the chained estimate is refined by ICP on the
+        estimated background points (points [B, N, 3], time_idx [B, N],
+        point_valid, point_bg [B, N] bool), detached; the pair losses keep
+        the unrefined poses, as in the JAX package."""
         b, m = pillar_valid.shape
         t_frames = self.n_sweeps
         n = self.n_kpts
@@ -133,6 +142,11 @@ class EgoMotionHead(nn.Module):
 
         eye = eye4.expand(b, 1, 4, 4)
         chained_est = torch.cat([eye, pose_pairs], dim=1)  # [B, T, 4, 4]
+        if self.icp and point_bg is not None:
+            with record_function("motionnet.icp_ego"):
+                chained_est = refine_ego_poses(points, time_idx, point_valid, point_bg,
+                                               chained_est.detach(), self.icp_threshold,
+                                               self.icp_max_iter)
         chained_gt = torch.cat(
             [eye, se3.relative_pose(ego_motion_gt[:, 1:], ego_motion_gt[:, :1])], dim=1)
         rot_err = se3.rotation_error_deg(chained_est[..., :3, :3], chained_gt[..., :3, :3])

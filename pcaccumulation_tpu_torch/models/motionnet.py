@@ -1,12 +1,19 @@
 """MotionNet: the end-to-end orchestrator (the port of the JAX package's
-`models/motionnet.py`, `mode="train" | "val"`).
+`models/motionnet.py`, `mode="train" | "val" | "test"`).
 
 Pillar stats -> PillarFeatureNet -> BEV densify -> UNet -> FB head ->
 ego-feature head + EgoMotionHead -> shear warp of the folded BEV canvas ->
 STPN -> FG-subset AlignNet/TPointNet reconstruction. Static capacities and
 masks stand for the reference's dynamic selections, and its dynamic gates
-are `torch.where` selections on default outputs, so the forward never
-reads a value back to the host.
+are `torch.where` selections on default outputs, so the train and val
+forwards never read a value back to the host.
+
+Test mode takes the FB mask from the estimate alone and reconstructs the
+instances that the on-device clustering of the moving points finds
+(ops/cluster.py; its propagation reads one flag back per pass), against
+identity instance motions; `inst_labels_override` injects labels instead.
+With `pose_estimation.icp` / `tpointnet.icp` on, the ego poses and the
+instance motions are refined by ICP (ops/icp.py, kernel K4).
 
 BatchNorm runs with batch statistics in `model.train()` and with running
 statistics in `model.eval()`. The forward is differentiable: the kernels'
@@ -15,7 +22,9 @@ kernels/row_shift.py). As in the JAX package, the warp and the
 reconstruction read the BEV features and the ego pose detached.
 
 Each stage runs inside a `torch.profiler.record_function` range named
-`motionnet.<stage>`; `pcaccumulation_tpu_torch.profile_forward` reads them.
+`motionnet.<stage>` (the ICP ranges `motionnet.icp_ego` and
+`motionnet.icp_instance` sit inside the ego and reconstruction stages);
+`pcaccumulation_tpu_torch.profile_forward` reads them.
 Outside a profiler a range costs a few microseconds.
 """
 
@@ -37,7 +46,13 @@ from pcaccumulation_tpu_torch.models.stpn import STPN
 from pcaccumulation_tpu_torch.models.tpointnet import AlignNet
 from pcaccumulation_tpu_torch.models.unet import UNet
 from pcaccumulation_tpu_torch.ops import se3
-from pcaccumulation_tpu_torch.ops.bilinear import temporal_ungrid, ungrid, warp_bev_folded
+from pcaccumulation_tpu_torch.ops.bilinear import (
+    temporal_ungrid,
+    ungrid,
+    warp_bev_batch,
+    warp_bev_folded,
+)
+from pcaccumulation_tpu_torch.ops.cluster import cluster_moving_points
 from pcaccumulation_tpu_torch.ops.segment import compact_mask_indices, take_rows_unique
 
 MIN_POINTS = 15
@@ -65,8 +80,9 @@ class MotionNet(nn.Module):
         dtype_name = cfg.get("precision", {}).get("compute_dtype", "float32")
         if dtype_name != "float32":
             raise NotImplementedError(f"compute_dtype={dtype_name!r}: only float32 is ported")
-        if cfg.get("warp_mode", "shear") != "shear":
-            raise NotImplementedError("only warp_mode: shear is ported")
+        self.warp_mode = cfg.get("warp_mode", "shear")
+        if self.warp_mode not in ("shear", "gather"):
+            raise ValueError(f"warp_mode={self.warp_mode!r}")
         self.grid_hw = (vg["grid_size"][1], vg["grid_size"][0])  # (H=ny, W=nx)
         self.n_frames = vg["n_sweeps"]
         self.pc_range = vg["range"]
@@ -87,21 +103,26 @@ class MotionNet(nn.Module):
             slack=pose["add_slack"], n_sweeps=vg["n_sweeps"], freq=cfg["data"]["freq"],
             max_speed=cfg["data"]["max_speed"], seq_pose=pose["seq_pose"],
             deterministic_sampling=pose.get("deterministic_sampling", False),
-            icp=pose.get("icp", False))
+            icp=pose.get("icp", False), icp_threshold=pose.get("icp_threshold", 0.15),
+            icp_max_iter=pose.get("icp_max_iter", 50))
         self.motionhead = STPN(feat_dim=cfg["stpn"]["feat_dim"], n_frames=vg["n_sweeps"],
                                n_band_layers=cfg["stpn"].get("n_band_layers", 4))
+        tp = cfg["tpointnet"]
         self.reconstructor = AlignNet(
-            n_frames=vg["n_sweeps"], n_iterations=cfg["tpointnet"]["n_iterations"],
-            min_points_per_frame=cfg["tpointnet"]["min_points"],
-            icp=cfg["tpointnet"].get("icp", False))
+            n_frames=vg["n_sweeps"], n_iterations=tp["n_iterations"],
+            min_points_per_frame=tp["min_points"], icp=tp.get("icp", False),
+            icp_threshold=tp.get("icp_threshold", 0.25), icp_max_iter=tp.get("icp_max_iter", 50),
+            icp_max_points=tp.get("icp_max_points", 1024))
 
     def forward(self, batch: dict, mode: str = "val",
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                inst_labels_override: torch.Tensor | None = None) -> dict:
         """batch: the collated tensors (see `pcaccumulation_tpu_torch.to_device`).
         generator: the random keypoint draw's torch.Generator (unused with
-        deterministic sampling)."""
-        if mode not in ("train", "val"):
-            raise NotImplementedError(f"mode={mode!r}: on-device test clustering is a later slice")
+        deterministic sampling). inst_labels_override [B, N] (test mode):
+        instance labels to reconstruct instead of the clustering's."""
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"mode={mode!r}")
         points = batch["points"].float()                  # [B, N, 3]
         time_idx = batch["time_idx"]                      # [B, N]
         point_valid = batch["point_valid"]                # [B, N]
@@ -157,7 +178,8 @@ class MotionNet(nn.Module):
                 ego_pillar, pillar_mean, pillar_coords[..., 0], pillar_valid, fb_est_pillar == 0,
                 batch["ego_motion_gt"].float(),
                 pillar_scan_key=pillar_coords[..., 1] * w + pillar_coords[..., 2],
-                generator=generator)
+                generator=generator, points=points, time_idx=time_idx, point_valid=point_valid,
+                point_bg=(fb_est_point == 0) & point_valid)
             results.update(ego)
 
         # ---- 5. warp + motion segmentation ----------------------------------
@@ -171,13 +193,25 @@ class MotionNet(nn.Module):
             poses_w = torch.cat(
                 [torch.eye(4, dtype=pose_est.dtype, device=pose_est.device).expand(b, 1, 4, 4),
                  pose_est[:, 1:]], dim=1)
-            warped = warp_bev_folded(bevf, poses_w, self.voxel_size[0], self.voxel_size[1],
-                                     self.pc_range[0], self.pc_range[1])
+            warp_args = (self.voxel_size[0], self.voxel_size[1], self.pc_range[0],
+                         self.pc_range[1])
+            if self.warp_mode == "gather":
+                # per-frame bilinear warp of the unfolded [B*T, H, W, Cf] maps
+                unfolded = bevf.reshape(b, h, w, t, cf).permute(0, 3, 1, 2, 4)
+                warped = warp_bev_batch(unfolded.reshape(b * t, h, w, cf),
+                                        poses_w.reshape(b * t, 4, 4), *warp_args,
+                                        method="gather")
+                warped = (warped.reshape(b, t, h, w, cf).permute(0, 2, 3, 1, 4)
+                          .reshape(b, h, w, t * cf))
+            else:
+                warped = warp_bev_folded(bevf, poses_w, *warp_args)
         transformed_points = se3.ego_motion_compensation(points, time_idx, pose_est)
         results["transformed_points"] = transformed_points
 
         with record_function("motionnet.stpn"):
-            fb_mask = ((fb_labels == 1) | (fb_est_point == 1)) & point_valid
+            fb_mask = (fb_est_point == 1) & point_valid
+            if mode != "test":
+                fb_mask = fb_mask | ((fb_labels == 1) & point_valid)
             gate = fb_mask.sum() > MIN_POINTS
             s_fb = self.cfg["capacity"].get("max_fg_points", 0) or n
             default_mos = torch.zeros((b, n, 2), dtype=points.dtype, device=points.device)
@@ -203,8 +237,32 @@ class MotionNet(nn.Module):
                 results["offset_est"] = torch.where(use, offset, 0.0)
 
         # ---- 6. per-instance reconstruction ---------------------------------
+        inst_labels = batch["inst_labels"]
+        inst_motion_gt = batch["inst_motion_gt"].float()
+        rec_mask = (fb_labels == 1) & point_valid
+        if mode == "test":
+            inst_labels = inst_labels_override
+            if inst_labels is None:
+                with record_function("motionnet.cluster"):
+                    ccfg = self.cfg["cluster"]
+                    moving = torch.argmax(results["mos_est"], dim=-1) == 1
+                    inst_labels = torch.stack([
+                        cluster_moving_points(
+                            transformed_points[i], results["offset_est"][i], moving[i],
+                            point_valid[i], eps=ccfg["eps_dbscan"],
+                            min_samples=ccfg["min_samples_dbscan"],
+                            min_cluster_size=ccfg["min_p_cluster"], pre_voxel=0.05,
+                            max_cluster_points=ccfg["max_cluster_points"],
+                            n_iters=ccfg["bfs_iters"])
+                        for i in range(b)])
+                    # the static instance capacity: overflow ids -> background
+                    k_cap = inst_motion_gt.shape[1]
+                    inst_labels = torch.where(inst_labels < k_cap, inst_labels, 0)
+            results["inst_labels_est"] = inst_labels
+            rec_mask = (inst_labels != 0) & point_valid
+            inst_motion_gt = torch.eye(4, dtype=torch.float32, device=points.device).expand(
+                inst_motion_gt.shape)
         with record_function("motionnet.reconstruction"):
-            rec_mask = (fb_labels == 1) & point_valid
             s_cap = self.cfg["capacity"].get("max_fg_points", 0) or n
             if s_cap < n:
                 sel, r_mask = compact_mask_indices(rec_mask, s_cap)
@@ -213,19 +271,19 @@ class MotionNet(nn.Module):
                 # per-frame maps
                 r_points_raw = take_rows_unique(points, sel)
                 r_tid = take_rows_unique(time_idx, sel)
-                r_inst = take_rows_unique(batch["inst_labels"], sel)
+                r_inst = take_rows_unique(inst_labels, sel)
                 r_sd = take_rows_unique(batch["sd_labels"], sel)
             else:
                 sel = None
                 r_points, r_points_raw, r_tid = transformed_points, points, time_idx
-                r_inst, r_mask, r_sd = batch["inst_labels"], rec_mask, batch["sd_labels"]
+                r_inst, r_mask, r_sd = inst_labels, rec_mask, batch["sd_labels"]
 
             backbone_pp = temporal_ungrid(bev_feats.detach().reshape(b, t, h, w, cf),
                                           r_points_raw[..., :2], r_tid, self.pc_range[0])
             mos_pp = ungrid(mos_map, r_points[..., :2], self.pc_range[0])
             rec = self.reconstructor(
                 r_points, r_tid, r_inst, r_mask, r_sd, backbone_pp, mos_pp,
-                batch["inst_motion_gt"].float(), results["ego_motion_gt"],
+                inst_motion_gt, results["ego_motion_gt"],
                 results["ego_motion_est"])
 
         rec_gate = r_mask.sum() > MIN_POINTS

@@ -1,5 +1,6 @@
-"""TPointNet + AlignNet: per-instance rigid motion regression (the port of
-the JAX package's `models/tpointnet.py`, `icp=False`).
+"""TPointNet + AlignNet: per-instance rigid motion regression, then
+optionally the per-instance ICP refinement (the port of the JAX package's
+`models/tpointnet.py`).
 
 Instances are flattened across the batch into G = B*K global slots with a
 static capacity K per sample; masks stand where the reference selects
@@ -12,9 +13,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from pcaccumulation_tpu_torch.models.layers import MaskedBatchNorm, mlp
 from pcaccumulation_tpu_torch.ops import se3
+from pcaccumulation_tpu_torch.ops.icp import refine_instance_poses
 from pcaccumulation_tpu_torch.ops.numeric import safe_norm
 from pcaccumulation_tpu_torch.ops.segment import masked_segment_max, masked_segment_sum
 
@@ -177,11 +180,15 @@ class AlignNet(nn.Module):
     """Iterative TPointNet refinement over the whole batch."""
 
     def __init__(self, n_frames: int = 5, n_iterations: int = 1,
-                 min_points_per_frame: int = 10, icp: bool = False):
+                 min_points_per_frame: int = 10, icp: bool = False,
+                 icp_threshold: float = 0.25, icp_max_iter: int = 50,
+                 icp_max_points: int = 1024):
         super().__init__()
-        if icp:
-            raise NotImplementedError("per-instance ICP refinement is not ported")
         self.n_iterations = n_iterations
+        self.icp = icp
+        self.icp_threshold = icp_threshold
+        self.icp_max_iter = icp_max_iter
+        self.icp_max_points = icp_max_points
         self.alignment = TPointNet(n_frames, min_points_per_frame)
 
     def forward(self, transformed_points, time_idx, inst_idx, rec_mask, mos_labels,
@@ -220,6 +227,13 @@ class AlignNet(nn.Module):
                                                           est[..., :3, 3])
             updated_gt = se3.make_transform(r_new, t_new)
             final_pose = est if final_pose is None else se3.compose(est, final_pose)
+
+        if self.icp:
+            # detached, as the JAX package stop-gradients it
+            with record_function("motionnet.icp_instance"):
+                final_pose = refine_instance_poses(
+                    pts.detach(), tid, gid, valid, final_pose.detach(), self.icp_threshold,
+                    self.icp_max_iter, self.icp_max_points)
 
         rec_est = se3.reconstruct_sequence(pts, tid, gid, final_pose)
         rec_gt = se3.reconstruct_sequence(pts, tid, gid, gt0)

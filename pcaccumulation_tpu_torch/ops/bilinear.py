@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks
+from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
 
 
 def _corners(x: torch.Tensor, y: torch.Tensor):
@@ -131,6 +131,84 @@ def _pixel_affine(pose: torch.Tensor, x_reso, y_reso, x_min, y_min, h, w):
     return torch.stack([pj - p00, pi - p00], dim=-1), p00
 
 
+def _shear_params(poses: torch.Tensor, x_reso, y_reso, x_min, y_min, h, w):
+    """alpha = -tan(phi/2), beta = sin(phi) of the rotation angle phi
+    nearest to each pose's pixel-space 2x2 block (polar projection), and
+    its translation (tx, ty) in pixels."""
+    a_mat, b_vec = _pixel_affine(poses.float(), x_reso, y_reso, x_min, y_min, h, w)
+    phi = torch.atan2(a_mat[..., 1, 0] - a_mat[..., 0, 1], a_mat[..., 0, 0] + a_mat[..., 1, 1])
+    return -torch.tan(phi / 2.0), torch.sin(phi), b_vec[..., 0], b_vec[..., 1]
+
+
+def _warp_gather(feats: torch.Tensor, poses: torch.Tensor, x_reso, y_reso, x_min,
+                 y_min) -> torch.Tensor:
+    """Per-pixel bilinear warp (grid_sample semantics, zero padding) of
+    feats [F, H, W, C] by the inverse of poses [F, 4, 4]."""
+    f, h, w, c = feats.shape
+    pose_inv = torch.linalg.inv(poses.float())
+    dev = feats.device
+    xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) * x_reso + x_min
+    ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) * y_reso + y_min
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")  # [H, W]
+
+    def row(i):
+        return (pose_inv[:, i, 0, None, None] * gx + pose_inv[:, i, 1, None, None] * gy
+                + pose_inv[:, i, 3, None, None])
+
+    u = (row(0) / abs(x_min)).reshape(f, -1)
+    v = (row(1) / abs(y_min)).reshape(f, -1)
+    return bilinear_sample(feats, u, v, padding_mode="zeros").reshape(f, h, w, c)
+
+
+def warp_bev(feats: torch.Tensor, pose: torch.Tensor, x_reso: float, y_reso: float,
+             x_min: float, y_min: float, method: str = "shear") -> torch.Tensor:
+    """Warp one BEV map feats [H, W, C] by the inverse of pose [4, 4]
+    (frame -> anchor): each output pixel centre is mapped through the
+    inverse's xy block and sampled bilinearly, zeros outside.
+
+    method 'gather': the per-pixel bilinear sample (grid_sample parity).
+    method 'shear': the three-pass shear decomposition of the rotation,
+    R(phi) = Sx(-tan(phi/2)) @ Sy(sin phi) @ Sx(-tan(phi/2)), each pass a
+    `row_shift` (kernel K3 on the card) with an H<->W swap around the
+    middle one; exact for a z-rotation plus translation up to the
+    interpolation kernel (three 1-D lerps against one 2-D lerp).
+    """
+    h, w, c = feats.shape
+    if method == "gather":
+        return _warp_gather(feats[None], pose[None], x_reso, y_reso, x_min, y_min)[0]
+    alpha, beta, tx_p, ty_p = _shear_params(pose, x_reso, y_reso, x_min, y_min, h, w)
+    i_idx = torch.arange(h, dtype=feats.dtype, device=feats.device)
+    j_idx = torch.arange(w, dtype=feats.dtype, device=feats.device)
+    # pass 1: x += alpha*i + (tx - alpha*ty)
+    out = row_shift(feats, alpha * i_idx + tx_p - alpha * ty_p)
+    # pass 2: y += beta*j + ty, a row shift of the transposed map
+    out = row_shift(out.transpose(0, 1).contiguous(), beta * j_idx + ty_p)
+    out = out.transpose(0, 1).contiguous()
+    # pass 3: x += alpha*i
+    return row_shift(out, alpha * i_idx)
+
+
+def warp_bev_batch(feats: torch.Tensor, poses: torch.Tensor, x_reso: float, y_reso: float,
+                   x_min: float, y_min: float, method: str = "shear") -> torch.Tensor:
+    """`warp_bev` of F maps [F, H, W, C] by F poses [F, 4, 4] at once. The
+    shear path folds the frame axis into the rows, so each of its three
+    passes is one `row_shift` over [F*H, W, C]."""
+    f, h, w, c = feats.shape
+    if method == "gather":
+        return _warp_gather(feats, poses, x_reso, y_reso, x_min, y_min)
+    alpha, beta, tx_p, ty_p = _shear_params(poses, x_reso, y_reso, x_min, y_min, h, w)  # [F]
+    i_idx = torch.arange(h, dtype=torch.float32, device=feats.device)
+    j_idx = torch.arange(w, dtype=torch.float32, device=feats.device)
+    s1 = alpha[:, None] * i_idx + (tx_p - alpha * ty_p)[:, None]  # [F, H]
+    out = row_shift(feats.reshape(f * h, w, c), s1.reshape(-1))
+    out = out.reshape(f, h, w, c).transpose(1, 2).contiguous()  # [F, W, H, C]
+    s2 = beta[:, None] * j_idx + ty_p[:, None]  # [F, W]
+    out = row_shift(out.reshape(f * w, h, c), s2.reshape(-1))
+    out = out.reshape(f, w, h, c).transpose(1, 2).contiguous()
+    s3 = (alpha[:, None] * i_idx).expand(f, h)
+    return row_shift(out.reshape(f * h, w, c), s3.reshape(-1)).reshape(f, h, w, c)
+
+
 def warp_bev_folded(bevf: torch.Tensor, poses: torch.Tensor, x_reso: float,
                     y_reso: float, x_min: float, y_min: float) -> torch.Tensor:
     """Shear-warp a folded BEV canvas [B, H, W, T*C] by the inverse of
@@ -144,12 +222,7 @@ def warp_bev_folded(bevf: torch.Tensor, poses: torch.Tensor, x_reso: float,
     """
     b, h, w, ctot = bevf.shape
     t = poses.shape[1]
-    a_mat, b_vec = _pixel_affine(poses.float(), x_reso, y_reso, x_min, y_min, h, w)
-    phi = torch.atan2(a_mat[..., 1, 0] - a_mat[..., 0, 1],
-                      a_mat[..., 0, 0] + a_mat[..., 1, 1])  # [B, T]
-    alpha = -torch.tan(phi / 2.0)
-    beta = torch.sin(phi)
-    tx_p, ty_p = b_vec[..., 0], b_vec[..., 1]
+    alpha, beta, tx_p, ty_p = _shear_params(poses, x_reso, y_reso, x_min, y_min, h, w)  # [B, T]
     i_idx = torch.arange(h, dtype=torch.float32, device=bevf.device)
     j_idx = torch.arange(w, dtype=torch.float32, device=bevf.device)
 

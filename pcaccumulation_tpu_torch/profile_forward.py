@@ -1,15 +1,20 @@
-"""Where the val forward's and the training micro-step's time goes on the
-card.
+"""Where the val forward's, the test forward's and the training
+micro-step's time goes on the card.
 
-    python -m pcaccumulation_tpu_torch.profile_forward [--train]
+    python -m pcaccumulation_tpu_torch.profile_forward [--train | --test]
 
 Builds the default config's MotionNet (configs/default.yaml) at full width
 with seeded random weights on synthetic scenes at the config's capacities,
 warms it up, then measures:
 - the forward's (with --train: the micro-step's) median time on the host
-  clock, synchronised;
+  clock, synchronised; --test times the test-mode forward (clustering,
+  instance reconstruction of the clusters) with both ICPs on at the
+  config's 50 iterations, the FB and MOS heads set to the scene's label
+  shares (`calibrate_heads`);
 - each stage's device time, from CUDA events around the forward's
-  `motionnet.<stage>` ranges (see models/motionnet.py). With --train also
+  `motionnet.<stage>` ranges (see models/motionnet.py; the ICP ranges
+  `icp_ego` and `icp_instance` lie inside `ego` and `reconstruction`, so
+  they are shares of those, not stages of their own). With --train also
   each stage's backward: the saved tensors of a stage's forward carry its
   label, and every backward node that unpacks one records a CUDA event; the
   device time from one event to the next goes to that event's stage (nodes
@@ -38,6 +43,7 @@ import torch
 
 SEED = 0
 ITERS = 10  # forwards per measurement
+NESTED = ("icp_ego", "icp_instance")  # ranges inside the ego and reconstruction stages
 
 
 def default_scenes(cfg: dict, n: int) -> list[dict]:
@@ -53,6 +59,44 @@ def default_scenes(cfg: dict, n: int) -> list[dict]:
                                     pts_per_object=500), cfg)
         for s in range(n)
     ]
+
+
+def shift_to_share(bias: torch.Tensor, margins: torch.Tensor, share: float) -> float:
+    """Lower bias[1] (a head's class-1 logit) so that `share` of the rows
+    with these class-1 margins decide for class 1; the threshold goes to the
+    middle of the widest gap among the margins within 1 % of that quantile,
+    so that no row lies near it. Returns the shift."""
+    d = torch.sort(margins.float()).values
+    n = len(d)
+    target = min(max(int(round((1.0 - share) * n)), 1), n - 1)
+    lo, hi = max(1, target - n // 100), min(n - 1, target + n // 100)
+    i = lo + int(torch.argmax(d[lo:hi + 1] - d[lo - 1:hi]))
+    shift = float(d[i - 1] + d[i]) / 2
+    with torch.no_grad():
+        bias[1] -= shift
+    return shift
+
+
+def calibrate_heads(model, batch) -> tuple[float, float]:
+    """Set the FB and MOS heads' class-1 biases of the seeded random weights
+    so that the forward splits the scene as its labels do: the share of
+    estimated-FG pillars is the share of FG points, and the share of moving
+    decoded rows is the moving share of the FG points. (Seeded random
+    weights call every pillar FG and every FG point moving, and the test
+    path then has no background for the ego ICP.) Returns the two shares."""
+    v = batch["point_valid"]
+    fb = (batch["fb_labels"] == 1) & v
+    fg_share = float(fb.sum() / v.sum())
+    mov_share = float(((batch["sd_labels"] == 1) & fb).sum() / fb.sum())
+    with torch.no_grad():
+        lp = model(batch)["fb_logit_pillar"]
+        shift_to_share(model.semseg_head.seg_head[3].bias,
+                       (lp[..., 1] - lp[..., 0])[batch["pillar_valid"]], fg_share)
+        out = model(batch)
+        ms = out["mos_sub"][out["sub_valid"]]
+        shift_to_share(model.motionhead.mos_seg.seg_head[3].bias, ms[:, 1] - ms[:, 0],
+                       mov_share)
+    return fg_share, mov_share
 
 
 def _event() -> torch.cuda.Event:
@@ -118,6 +162,15 @@ def _kernel_summary(prof, iters: int) -> dict:
 
     spans = sorted((e for e in device if is_span(e)), key=lambda e: e.time_range.start)
     span_starts = [sp.time_range.start for sp in spans]
+
+    def innermost(start):
+        """The latest-starting span that still contains `start` (the ICP
+        spans nest inside their stage's span)."""
+        i = bisect.bisect_right(span_starts, start) - 1
+        while i >= 0 and start >= spans[i].time_range.end:
+            i -= 1
+        return spans[i] if i >= 0 else None
+
     kernels = [e for e in device if not is_span(e)]
     by_name: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
@@ -127,13 +180,12 @@ def _kernel_summary(prof, iters: int) -> dict:
     # the profiled device window: first kernel start to last end
     window = ((max(e.time_range.end for e in kernels)
                - min(e.time_range.start for e in kernels)) / 1e3 / iters if kernels else None)
-    # per stage: the kernels that start inside the stage's device span
-    # (the spans of one stream do not overlap)
+    # per stage: the kernels that start inside the stage's innermost span
     stage_kernels: dict[str, list] = collections.defaultdict(list)
     for e in kernels:
-        i = bisect.bisect_right(span_starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start < spans[i].time_range.end:
-            stage_kernels[spans[i].name.split(".", 1)[-1]].append(e)
+        span = innermost(e.time_range.start)
+        if span is not None:
+            stage_kernels[span.name.split(".", 1)[-1]].append(e)
     return {
         "n_kernels": len(kernels), "busy_ms": busy if kernels else None, "window_ms": window,
         "top": sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20],
@@ -179,17 +231,20 @@ def _profile(run, iters: int):
 def _with_stage_events(run, iters: int, backward_marks: list | None = None) -> dict:
     """Run `iters` iterations with the stage ranges replaced by CUDA event
     pairs; returns the median device ms per stage."""
-    from pcaccumulation_tpu_torch.models import motionnet
+    from pcaccumulation_tpu_torch.models import egomotion, motionnet, tpointnet
 
     _StageEvents.pairs.clear()
     _StageEvents.backward_marks = backward_marks
-    motionnet.record_function = _StageEvents
+    modules = (motionnet, egomotion, tpointnet)
+    for mod in modules:
+        mod.record_function = _StageEvents
     try:
         for i in range(iters):
             run(i)
         torch.cuda.synchronize()
     finally:
-        motionnet.record_function = torch.profiler.record_function
+        for mod in modules:
+            mod.record_function = torch.profiler.record_function
         _StageEvents.backward_marks = None
     return {k: statistics.median(a.elapsed_time(b) for a, b in v)
             for k, v in _StageEvents.pairs.items()}
@@ -206,16 +261,25 @@ def _host_ms(run, iters: int) -> list[float]:
     return out
 
 
-def profile_val(port, cfg, smi: str) -> None:
+def test_mode_config(cfg: dict, icp_max_iter: int = 50) -> dict:
+    """cfg with both ICP refinements on at `icp_max_iter` iterations."""
+    cfg["pose_estimation"].update(icp=True, icp_max_iter=icp_max_iter)
+    cfg["tpointnet"].update(icp=True, icp_max_iter=icp_max_iter)
+    return cfg
+
+
+def profile_val(port, cfg, smi: str, mode: str = "val") -> None:
     from pcaccumulation_tpu_torch.data.loader import collate
 
     cfg["pose_estimation"]["deterministic_sampling"] = True
     batches = [port.to_device(collate([s])) for s in default_scenes(cfg, 3)]
     torch.manual_seed(SEED)
     model = port.build_model(cfg)
+    if mode == "test":
+        calibrate_heads(model, batches[0])
 
     def run(i):
-        model(batches[i % len(batches)])
+        model(batches[i % len(batches)], mode=mode)
 
     with torch.no_grad():
         for i in range(len(batches)):
@@ -226,18 +290,21 @@ def profile_val(port, cfg, smi: str) -> None:
         summary = _profile(run, ITERS)
     stage_busy, stage_launches = summary["stage_busy"], summary["stage_launches"]
 
-    print(f"val forward (B=1, default config): median {fwd_ms:.3f} ms of {ITERS} "
+    print(f"{mode} forward (B=1, default config): median {fwd_ms:.3f} ms of {ITERS} "
           f"on {smi}")
     print("per stage and forward: device ms between the stage's CUDA events (median), "
           "kernel-busy ms and kernel launches (profiled):")
     for k, v in stages.items():
         print(f"  {k:16s} {v:9.3f} {stage_busy.get(k, 0.0):9.3f} "
               f"{stage_launches.get(k, 0.0):7.0f}")
-    print(f"  {'sum':16s} {sum(stages.values()):9.3f} {sum(stage_busy.values()):9.3f} "
-          f"{sum(stage_launches.values()):7.0f}")
+    top = [k for k in stages if k not in NESTED]
+    print(f"  {'sum':16s} {sum(stages[k] for k in top):9.3f} {sum(stage_busy.values()):9.3f} "
+          f"{sum(stage_launches.values()):7.0f}   (the icp rows are part of ego and "
+          f"reconstruction; busy and launches count each kernel once)")
     _print_kernels(summary, ITERS, "forward")
     print(json.dumps({
-        "card": smi, "forward_ms": fwd_ms, "forward_ms_all": host_ms, "stage_ms": stages,
+        "card": smi, "mode": mode, "forward_ms": fwd_ms, "forward_ms_all": host_ms,
+        "stage_ms": stages,
         "stage_busy_ms": stage_busy, "stage_launches": stage_launches,
         **_summary_json(summary, ITERS, "forward"),
     }), flush=True)
@@ -334,6 +401,8 @@ def main(argv: list[str]) -> None:
     build.build_all()
     if "--train" in argv[1:]:
         profile_train(port, load_config(), smi)
+    elif "--test" in argv[1:]:
+        profile_val(port, test_mode_config(load_config()), smi, mode="test")
     else:
         profile_val(port, load_config(), smi)
 

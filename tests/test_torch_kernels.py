@@ -176,7 +176,7 @@ def test_seg_pool_backward_kernel_matches_plain(cuda, op, n, c):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nb,r,w,c", [(1, 16, 32, 8), (5, 288, 288, 32)])
 def test_row_shift_backward_kernel_matches_plain(cuda, nb, r, w, c):
-    """The gradient through RowShiftBlocks is one K2 launch at -shifts."""
+    """The gradient through RowShift is one K2 launch at -shifts."""
     img, shifts = _row_shift_case(7, nb, r=r, w=w, c=c)
     g = np.random.default_rng(8).standard_normal(img.shape).astype(np.float32)
     it, st, gt = (torch.from_numpy(a).to(cuda) for a in (img, shifts, g))

@@ -280,15 +280,20 @@ def test_port_imports_no_jax():
             "pcaccumulation_tpu_torch.kernels.build, pcaccumulation_tpu_torch.data.dataset, "
             "pcaccumulation_tpu_torch.data.loader, pcaccumulation_tpu_torch.config, "
             "pcaccumulation_tpu_torch.train.trainer, pcaccumulation_tpu_torch.main, "
-            "pcaccumulation_tpu_torch.profile_forward; "
+            "pcaccumulation_tpu_torch.profile_forward, pcaccumulation_tpu_torch.ops.icp, "
+            "pcaccumulation_tpu_torch.ops.cluster, pcaccumulation_tpu_torch.kernels.chamfer, "
+            "pcaccumulation_tpu_torch.train.tester, pcaccumulation_tpu_torch.evaluation; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'pcaccumulation_tpu')], sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
-    """build_model / to_device without a device want CUDA and raise on a
-    CPU-only host; with device='cpu' they run."""
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """build_model / to_device, the Tester and the test CLI without a device
+    want CUDA and raise on a CPU-only host; with device='cpu' they run."""
+    from pcaccumulation_tpu_torch.main import main
+    from pcaccumulation_tpu_torch.train.tester import Tester
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = config("parity")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -298,5 +303,11 @@ def test_entry_points_default_to_cuda(monkeypatch):
     model = build_model(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
     assert to_device({"x": np.zeros(3)}, "cpu")["x"].device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        model(to_device(make_batch(cfg, batch_size=1), "cpu"), mode="test")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Tester(cfg, model, save_dir=str(tmp_path))
+    assert Tester(cfg, model, save_dir=str(tmp_path), device="cpu").device.type == "cpu"
+    with pytest.raises(ValueError, match="mode"):
+        model(to_device(make_batch(cfg, batch_size=1), "cpu"), mode="predict")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["main", str(REPO / "configs" / "synthetic.yaml"), "1", "1", "--misc.mode=test"])

@@ -192,7 +192,8 @@ def test_trainer_loss_falls_checkpoint_round_trips(tmp_path):
 def test_cli_val_epoch_on_synthetic_data(tmp_path, monkeypatch):
     """`python -m pcaccumulation_tpu_torch.main configs/default.yaml 1 1
     --misc.mode=val --misc.device=cpu ...` runs one val epoch over the
-    tracked data/synthetic samples at a cut-down grid."""
+    tracked data/synthetic samples at a cut-down grid, and with
+    --misc.mode=test dumps the test scenes."""
     from pathlib import Path
 
     from pcaccumulation_tpu_torch.main import main
@@ -213,8 +214,10 @@ def test_cli_val_epoch_on_synthetic_data(tmp_path, monkeypatch):
     assert "val Epoch: 0" in log and "mos_iou" in log
     assert (run / "config.json").exists() and (run / "metrics.jsonl").exists()
     assert (run / "src_snapshot" / "pcaccumulation_tpu_torch" / "main.py").exists()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        main(argv[:4] + ["--misc.mode=test", "--misc.device=cpu"])
+    # the same CLI in test mode dumps the test scenes (ICP off, the default)
+    assert main(argv + ["--misc.mode=test", "--misc.exp_name=cli_test", "--test.num_workers=0",
+                        "--cluster.max_cluster_points=1024", "--cluster.bfs_iters=4"]) == 0
+    assert len(list((tmp_path / "results" / "cli_test").glob("*/flow_error.npz"))) == 3
 
 
 def test_augmentation_and_loader_order_match_jax(monkeypatch):
