@@ -32,10 +32,10 @@ SIGNATURES = {
         "segpool_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
     },
     "row_shift": {
-        "row_shift_blocks_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+        "row_shift_blocks_forward": [_P, _P, _P, _I64, _I32, _I32, _I32, ctypes.c_float, _P],
     },
     "nn": {
-        "nn_forward": [_P, _P, _P, _P, _P, _I32, _I32, _I32, _P],
+        "nn_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P],
     },
 }
 
@@ -115,6 +115,14 @@ def load_library(name: str) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     _loaded[name] = lib
     return lib
+
+
+def stream(t) -> int:
+    """The raw handle of the current CUDA stream on t's device (PyTorch's
+    own lookup, without building a `torch.cuda.Stream` object per call)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(rc: int, what: str) -> None:

@@ -1,16 +1,24 @@
 """Nearest neighbour over valid references: kernel K4, its plain version,
 and the Chamfer distance built on it.
 
-`nn(a, b, b_valid)` solves P problems at once: for each query a[p, i] the
-squared distance to the nearest valid reference b[p, j] and its index j,
-the first one on ties; with no valid reference, 1e30 and index 0. On a CUDA
-tensor it launches the kernel of `csrc/nn.cu` (which replaces the TPU kernel
-`pcaccumulation_tpu/kernels/chamfer.py::nn_pallas`); on a CPU tensor it runs
-`nn_plain`, the formula of the JAX package's `nn_bruteforce_ref`.
+`nn(a, b, b_valid, a_valid=None)` solves P problems at once: for each query
+a[p, i] the squared distance to the nearest valid reference b[p, j] and its
+index j, the first one on ties; with no valid reference, 1e30 and index 0.
+With `a_valid`, only those queries are asked for and the others get (1e30,
+0). On a CUDA tensor it launches the kernel of `csrc/nn.cu` (which replaces
+the TPU kernel `pcaccumulation_tpu/kernels/chamfer.py::nn_pallas`); on a CPU
+tensor it runs `nn_plain`, the formula of the JAX package's
+`nn_bruteforce_ref`.
 
-The two round differently: the kernel computes sum (a - b)^2, which is
-exact to about one ulp of the distance, where the plain version expands
-|a|^2 + |b|^2 - 2 a.b, whose error is about an ulp of |a|^2 + |b|^2
+`nn` is two steps, which a caller that asks many times against the same
+points (ICP) takes apart: `pack_references` / `pack_queries` move each
+problem's valid rows to the front of its row in their order (a stable sort
+on the mask) and read the largest count to the host (it sizes the kernel's
+grid), and `nn_packed` computes on the packed rows.
+
+The two versions round differently: the kernel computes sum (a - b)^2,
+which is exact to about one ulp of the distance, where the plain version
+expands |a|^2 + |b|^2 - 2 a.b, whose error is about an ulp of |a|^2 + |b|^2
 (2.4e-4 at 50 m from the origin). Where two references lie within that of
 each other, the two may pick different ones.
 
@@ -20,38 +28,81 @@ distance: two `nn` calls forward, a scatter through the argmins backward.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from pcaccumulation_tpu_torch.kernels import build
 
 _BIG = 1e30  # the distance of a query with no valid reference
 _BLOCK_ELEMS = 2 ** 25  # pair distances the plain version holds at once
+_SLICE = 2048  # references per kernel block (nn.cu's SLICE)
 
 
-def _pack_valid(b: torch.Tensor, b_valid: torch.Tensor):
-    """Each problem's valid references moved to the front of its row in
-    their order (a stable sort on the mask): (order [P, M] of original
-    indices, packed b [P, M, 3], valid counts [P] int32)."""
+class References(NamedTuple):
+    """Each problem's valid references first, in their order."""
+    points: torch.Tensor  # [P, M, 4] float32: x, y, z, 0
+    order: torch.Tensor   # [P, M] int32: the original index of each packed row
+    count: torch.Tensor   # [P] int32: valid references
+    max_count: int        # the largest count
+
+
+class Queries(NamedTuple):
+    """Each problem's asked-for queries first, in their order."""
+    valid: torch.Tensor   # [P, N] bool
+    order: torch.Tensor   # [P, N] int32: the original index of each packed row
+    count: torch.Tensor   # [P] int32: asked-for queries
+    max_count: int        # the largest count
+
+
+def _valid_first(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """(order [P, K] int32: the True rows' indices first, in their order,
+    then the others; count [P] int32 of True rows; the largest count, read
+    to the host)."""
+    order = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
+    count = mask.sum(1, dtype=torch.int32)
+    return order.to(torch.int32), count, int(count.max()) if count.numel() else 0
+
+
+def pack_references(b: torch.Tensor, b_valid: torch.Tensor) -> References:
+    """b [P, M, 3], b_valid [P, M] bool -> `References`."""
     p, m, _ = b.shape
-    order = torch.sort((~b_valid).to(torch.uint8), dim=1, stable=True).indices
-    packed = torch.gather(b, 1, order[..., None].expand(p, m, 3)).contiguous()
-    return order, packed, b_valid.sum(1, dtype=torch.int32)
+    order, count, max_count = _valid_first(b_valid)
+    packed = torch.gather(b, 1, order.long()[..., None].expand(p, m, 3))
+    return References(F.pad(packed, (0, 1)).contiguous(), order, count, max_count)
 
 
-def nn_plain(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor):
-    """Plain PyTorch version: |a|^2 + |b|^2 - 2 a.b as a float32 product,
-    invalid references at 1e30, min and first argmin. It skips the columns
-    past the largest valid count (after the packing `nn` does; the order of
-    the valid ones is kept, so the first argmin is the same) and works over
-    blocks of queries, holding at most 2^25 pair distances at once."""
+def pack_queries(a_valid: torch.Tensor) -> Queries:
+    """a_valid [P, N] bool -> `Queries`."""
+    return Queries(a_valid, *_valid_first(a_valid))
+
+
+def _check(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
+           a_valid: torch.Tensor | None) -> None:
+    if a.dim() != 3 or b.dim() != 3 or a.shape[-1] != 3 or b.shape[-1] != 3 \
+            or a.shape[0] != b.shape[0] or b_valid.shape != b.shape[:2] \
+            or (a_valid is not None and a_valid.shape != a.shape[:2]):
+        raise ValueError(f"nn wants a [P, N, 3], b [P, M, 3], b_valid [P, M], a_valid [P, N]; "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}, {tuple(b_valid.shape)}, "
+                         f"{None if a_valid is None else tuple(a_valid.shape)}")
+
+
+def _plain_packed(a: torch.Tensor, refs: References, queries: Queries | None):
+    """The plain version on packed references: |a|^2 + |b|^2 - 2 a.b as a
+    float32 product, invalid references at 1e30, min and first argmin,
+    over every query; then (1e30, 0) where a query is not asked for. It
+    skips the columns past the largest valid count (the order of the valid
+    ones is kept, so the first argmin is the same) and works over blocks of
+    queries, holding at most 2^25 pair distances at once."""
     p, n, _ = a.shape
-    order, packed, count = _pack_valid(b, b_valid)
-    m = int(count.max()) if p else 0  # a host read: the plain version only
+    count, m = refs.count, refs.max_count
     if m == 0:
         return (a.new_full((p, n), _BIG),
                 torch.zeros((p, n), dtype=torch.int32, device=a.device))
-    b, b_valid = packed[:, :m], torch.arange(m, device=a.device)[None] < count[:, None]
+    b = refs.points[:, :m, :3].contiguous()
+    b_valid = torch.arange(m, device=a.device)[None] < count[:, None]
     b_norm = (b * b).sum(-1)[:, None, :]  # [P, 1, M]
     block = max(1, _BLOCK_ELEMS // (p * m))
     dists, idxs = [], []
@@ -63,45 +114,82 @@ def nn_plain(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor):
         d, i = torch.min(d2, dim=-1)  # the first index on ties
         dists.append(d)
         idxs.append(i)
-    idx = torch.gather(order, 1, torch.cat(idxs, 1))  # a problem with none: order[p, 0] = 0
-    return torch.cat(dists, 1), idx.to(torch.int32)
+    # a problem with none: order[p, 0] = 0
+    d2, idx = torch.cat(dists, 1), torch.gather(refs.order.long(), 1, torch.cat(idxs, 1))
+    if queries is not None:
+        d2 = torch.where(queries.valid, d2, _BIG)
+        idx = torch.where(queries.valid, idx, 0)
+    return d2, idx.to(torch.int32)
 
 
-def nn(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor):
-    """a [P, N, 3], b [P, M, 3] float32, b_valid [P, M] bool ->
-    (d2 [P, N] float32, idx [P, N] int32).
+def nn_plain(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
+             a_valid: torch.Tensor | None = None):
+    """Plain PyTorch version of `nn` (see `_plain_packed`)."""
+    return _plain_packed(a, pack_references(b, b_valid),
+                         None if a_valid is None else pack_queries(a_valid))
+
+
+def nn_packed(a: torch.Tensor, refs: References, queries: Queries | None = None,
+              out: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """`nn` on references (and asked-for queries) packed beforehand: a
+    [P, N, 3] float32 -> (d2 [P, N] float32, idx [P, N] int32), written
+    into `out` if given (a caller in a loop, such as ICP, reuses them).
 
     A CPU tensor goes to the plain version; a CUDA tensor goes to the
-    kernel or raises. Before the launch each problem's valid references
-    are packed to the front of its row in their order (a stable sort on
-    the mask), so the kernel loops over those alone; the index is mapped
-    back after it.
+    kernel or raises. The kernel walks the valid references only, and only
+    the asked-for queries; it maps the index back through `refs.order`.
     """
-    if a.dim() != 3 or b.dim() != 3 or a.shape[-1] != 3 or b.shape[-1] != 3 \
-            or a.shape[0] != b.shape[0] or b_valid.shape != b.shape[:2]:
-        raise ValueError(f"nn wants a [P, N, 3], b [P, M, 3], b_valid [P, M]; got "
-                         f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(b_valid.shape)}")
-    if a.device.type == "cpu":
-        return nn_plain(a, b, b_valid)
-    if a.device.type != "cuda" or b.device != a.device or b_valid.device != a.device:
-        raise ValueError(f"nn: a on {a.device}, b on {b.device}, b_valid on {b_valid.device}")
-    if a.dtype != torch.float32 or b.dtype != torch.float32 or b_valid.dtype != torch.bool:
-        raise TypeError(f"nn kernel takes float32 points and a bool mask, got {a.dtype}, "
-                        f"{b.dtype}, {b_valid.dtype}")
-    p, n, _ = a.shape
-    m = b.shape[1]
-    order, packed, count = _pack_valid(b, b_valid)
+    p, n, k = a.shape
+    if k != 3 or p != refs.points.shape[0] \
+            or (queries is not None and queries.valid.shape != (p, n)):
+        raise ValueError(f"nn_packed: a {tuple(a.shape)} against references "
+                         f"{tuple(refs.points.shape)}")
+    if not a.is_cuda:
+        if a.device.type != "cpu":
+            raise ValueError(f"nn: a on {a.device}")
+        got = _plain_packed(a, refs, queries)
+        return got if out is None else (out[0].copy_(got[0]), out[1].copy_(got[1]))
+    dev = a.device
+    if refs.points.device != dev or (queries is not None and queries.order.device != dev):
+        raise ValueError(f"nn: a on {dev}, references on {refs.points.device}")
+    if a.dtype != torch.float32 or refs.points.dtype != torch.float32:
+        raise TypeError(f"nn kernel takes float32 points, got {a.dtype}, {refs.points.dtype}")
+    if out is None:
+        out = (torch.empty((p, n), dtype=torch.float32, device=dev),
+               torch.empty((p, n), dtype=torch.int32, device=dev))
+    d2, idx = out
+    n_rows = n if queries is None else queries.max_count
+    if refs.max_count == 0 or n_rows == 0:  # nothing to compute
+        return d2.fill_(_BIG), idx.zero_()
     a = a.contiguous()
-    d2 = torch.empty((p, n), dtype=torch.float32, device=a.device)
-    idx = torch.empty((p, n), dtype=torch.int32, device=a.device)
-    lib = build.load_library("nn")
-    rc = lib.nn_forward(a.data_ptr(), packed.data_ptr(), count.data_ptr(), d2.data_ptr(),
-                        idx.data_ptr(), p, n, m,
-                        torch.cuda.current_stream(a.device).cuda_stream)
+    slices = -(-refs.max_count // _SLICE)
+    part = torch.empty((slices, p, n, 2), dtype=torch.int32, device=dev) if slices > 1 else None
+    rc = build.load_library("nn").nn_forward(
+        a.data_ptr(), refs.points.data_ptr(), refs.count.data_ptr(), refs.order.data_ptr(),
+        None if queries is None else queries.order.data_ptr(),
+        None if queries is None else queries.count.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), None if part is None else part.data_ptr(),
+        p, n, refs.points.shape[1], n_rows, refs.max_count, _SLICE, build.stream(a))
     build.check(rc, "nn")
     nn.launches += 1
-    # with no valid reference the kernel's index 0 maps to order[p, 0] = 0
-    return d2, torch.gather(order, 1, idx.long()).to(torch.int32)
+    return d2, idx
+
+
+def nn(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
+       a_valid: torch.Tensor | None = None):
+    """a [P, N, 3], b [P, M, 3] float32, b_valid [P, M] bool, a_valid
+    [P, N] bool or None (every query) -> (d2 [P, N] float32, idx [P, N]
+    int32).
+
+    A CPU tensor goes to the plain version; a CUDA tensor goes to the
+    kernel or raises. Packs the references (and the queries) and calls
+    `nn_packed`.
+    """
+    _check(a, b, b_valid, a_valid)
+    if a.device.type == "cuda" and b_valid.dtype != torch.bool:
+        raise TypeError(f"nn kernel takes a bool mask, got {b_valid.dtype}")
+    return nn_packed(a, pack_references(b, b_valid),
+                     None if a_valid is None else pack_queries(a_valid))
 
 
 nn.launches = 0  # kernel launches (one per call that reached the card)

@@ -55,24 +55,22 @@ def _split(shifts: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
     return k.clamp(-w, w).to(torch.int32), (shifts - k).to(torch.float32)
 
 
-def _shift(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> tuple[torch.Tensor, bool]:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor.
+def _shift(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int,
+           sign: float = 1.0) -> tuple[torch.Tensor, bool]:
+    """The shift at sign * shifts: the kernel on a CUDA tensor (one launch,
+    which splits the shifts itself), the plain version on a CPU tensor.
     Returns (out, launched)."""
     r, w, ctot = img.shape
-    ki, f = _split(shifts, w)
-    if img.device.type == "cpu":
-        return row_shift_blocks_plain(img, ki, f, n_blocks), False
+    if not img.is_cuda:
+        return row_shift_blocks_plain(img, *_split(sign * shifts, w), n_blocks), False
     if img.dtype != torch.float32:
         raise TypeError(f"row_shift_blocks kernel takes float32, got {img.dtype}")
     img = img.contiguous()
-    ki = ki.contiguous()
-    f = f.contiguous()
+    shifts = shifts.to(torch.float32).contiguous()
     out = torch.empty_like(img)
     lib = build.load_library("row_shift")
-    rc = lib.row_shift_blocks_forward(
-        img.data_ptr(), ki.data_ptr(), f.data_ptr(), out.data_ptr(), r, w, ctot,
-        n_blocks, torch.cuda.current_stream(img.device).cuda_stream,
-    )
+    rc = lib.row_shift_blocks_forward(img.data_ptr(), shifts.data_ptr(), out.data_ptr(), r, w,
+                                      ctot, n_blocks, sign, build.stream(img))
     build.check(rc, "row_shift")
     return out, True
 
@@ -82,14 +80,14 @@ def row_shift_blocks_backward(g: torch.Tensor, shifts: torch.Tensor,
     """Gradient of `row_shift_blocks` for the image, given the cotangent g
     of its output: the same shift at -shifts (one K2 launch on a CUDA
     tensor, the plain version on a CPU tensor)."""
-    out, launched = _shift(g, -shifts, n_blocks)
+    out, launched = _shift(g, shifts, n_blocks, -1.0)
     row_shift_blocks_backward.launches += launched
     return out
 
 
 def row_shift_backward(g: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     """Gradient of `row_shift` for the image: the shift at -shifts [R, 1]."""
-    out, launched = _shift(g, -shifts, 1)
+    out, launched = _shift(g, shifts, 1, -1.0)
     row_shift_backward.launches += launched
     return out
 
@@ -119,13 +117,23 @@ def _check(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int, what: str) ->
     if ctot % n_blocks or shifts.shape != (r, n_blocks):
         raise ValueError(f"{what}: img {tuple(img.shape)}, shifts {tuple(shifts.shape)}, "
                          f"n_blocks {n_blocks}")
-    if img.device.type != "cpu" and (img.device.type != "cuda"
-                                     or shifts.device != img.device):
-        raise ValueError(f"{what}: img on {img.device}, shifts on {shifts.device}")
+    dev = img.device
+    if shifts.device != dev or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: img on {dev}, shifts on {shifts.device}")
+
+
+def _apply(img, shifts, n_blocks, counted, backward_fn) -> torch.Tensor:
+    """Through `RowShift` where a gradient is wanted; else the shift alone
+    (no autograd node to build)."""
+    if torch.is_grad_enabled() and (img.requires_grad or shifts.requires_grad):
+        return RowShift.apply(img, shifts, n_blocks, counted, backward_fn)
+    out, launched = _shift(img, shifts, n_blocks)
+    counted.launches += launched
+    return out
 
 
 def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """img [R, W, n_blocks*C] float32; shifts [R, n_blocks] float.
+    """img [R, W, n_blocks*C] float32; shifts [R, n_blocks] float32.
 
     The shift splits into k = floor(s), clipped to [-W, W] (|rotation| <=
     90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
@@ -133,16 +141,17 @@ def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> 
     plain version does. Differentiable in img through `RowShift`.
     """
     _check(img, shifts, n_blocks, "row_shift_blocks")
-    return RowShift.apply(img, shifts, n_blocks, row_shift_blocks,
-                          lambda g, s: row_shift_blocks_backward(g, s, n_blocks))
+    return _apply(img, shifts, n_blocks, row_shift_blocks,
+                  lambda g, s: row_shift_blocks_backward(g, s, n_blocks))
 
 
 def row_shift(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """img [R, W, C] float32; shifts [R] float: out[r, j] = img[r, j + s_r]
+    """img [R, W, C] float32; shifts [R] float32: out[r, j] = img[r, j + s_r]
     with linear interpolation, zeros outside the row (`row_shift_blocks`
     with one block; K3's own launch count)."""
-    _check(img, shifts[:, None], 1, "row_shift")
-    return RowShift.apply(img, shifts[:, None], 1, row_shift, row_shift_backward)
+    shifts = shifts[:, None]
+    _check(img, shifts, 1, "row_shift")
+    return _apply(img, shifts, 1, row_shift, row_shift_backward)
 
 
 row_shift_blocks.launches = 0  # forward kernel launches (one per call that reached the card)

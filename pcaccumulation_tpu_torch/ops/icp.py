@@ -1,18 +1,21 @@
 """Batched point-to-point ICP (the port of the JAX package's `ops/icp.py`).
 
-Every function solves many problems at once: one `nn` launch (kernel K4,
-kernels/chamfer.py) per iteration serves all of them. The iteration count is
-fixed, as the JAX package's `fori_loop`, and nothing is read back to the
-host inside the loop; the two degeneracy holds are `torch.where`
-selections. ICP is not differentiable in the reference (Open3D on the
-host): the results here are computed without autograd, i.e. detached.
+Every function solves many problems at once: one `nn_packed` call (kernel
+K4, kernels/chamfer.py) per iteration serves all of them. The targets and
+the valid sources are packed once per call, before the loop, and the
+kernel computes only the valid sources' nearest neighbours. The iteration
+count is fixed, as the JAX package's `fori_loop`, and nothing is read back
+to the host inside the loop (the packing reads the two largest counts
+once); the two degeneracy holds are `torch.where` selections. ICP is not
+differentiable in the reference (Open3D on the host): the results here are
+computed without autograd, i.e. detached.
 """
 
 from __future__ import annotations
 
 import torch
 
-from pcaccumulation_tpu_torch.kernels.chamfer import nn
+from pcaccumulation_tpu_torch.kernels.chamfer import nn_packed, pack_queries, pack_references
 from pcaccumulation_tpu_torch.ops import se3
 from pcaccumulation_tpu_torch.ops.kabsch import weighted_kabsch
 from pcaccumulation_tpu_torch.ops.segment import compact_mask_indices
@@ -43,8 +46,14 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor, src_valid: torch.Te
     pose = eye
     src_t = se3.apply_transform(src, init_pose)
     w_valid = src_valid.to(src.dtype)
+    # tgt and the masks do not change in the loop. An invalid source is not
+    # asked for and gets (1e30, index 0): its weight is 0 (w_valid), and its
+    # finite `matched` row adds exact zeros to the Kabsch sums.
+    refs, queries = pack_references(tgt, tgt_valid), pack_queries(src_valid)
+    out = (torch.empty(src_valid.shape, dtype=torch.float32, device=src.device),
+           torch.empty(src_valid.shape, dtype=torch.int32, device=src.device))
     for _ in range(max_iterations):
-        d2, idx = nn(src_t, tgt, tgt_valid)
+        d2, idx = nn_packed(src_t, refs, queries, out)  # read within the iteration
         w = (d2 < threshold * threshold).to(src.dtype) * w_valid
         matched = torch.gather(tgt, 1, idx.long()[..., None].expand(src_t.shape))
         rot, trans = weighted_kabsch(src_t, matched, w)

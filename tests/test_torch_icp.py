@@ -14,7 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from pcaccumulation_tpu_torch.kernels.chamfer import chamfer_distance, nn, nn_plain
+from pcaccumulation_tpu_torch.kernels.chamfer import (
+    chamfer_distance,
+    nn,
+    nn_packed,
+    nn_plain,
+    pack_queries,
+    pack_references,
+)
 from pcaccumulation_tpu_torch.kernels.row_shift import (
     row_shift,
     row_shift_backward,
@@ -74,6 +81,44 @@ def test_nn_plain_matches_jax_ref(kind, record_property):
     # the blocked plain version equals one block
     d2_small, idx_small = (x.numpy() for x in nn_plain(T(a), T(b), T(valid)))
     np.testing.assert_array_equal(idx_small, idx.numpy())
+
+
+def _query_mask(a, seed=12):
+    """About half the queries asked for; in problem 0 none, in problem 2 all."""
+    valid = np.random.default_rng(seed).random(a.shape[:2]) < 0.5
+    valid[0] = False
+    valid[-1] = True
+    return valid
+
+
+@pytest.mark.parametrize("kind", ["masks", "all_invalid", "ties"])
+def test_nn_query_mask_matches_unmasked(kind):
+    """`a_valid` on the CPU: the queries not asked for are (1e30, 0), the
+    others equal the unmasked call bit for bit."""
+    a, b, valid = _nn_case(kind)
+    a_valid = _query_mask(a)
+    d2, idx = nn(T(a), T(b), T(valid))
+    d2_m, idx_m = nn(T(a), T(b), T(valid), T(a_valid))
+    mask = T(a_valid)
+    assert torch.equal(d2_m[mask], d2[mask]) and torch.equal(idx_m[mask], idx[mask])
+    assert bool((d2_m[~mask] == 1e30).all()) and bool((idx_m[~mask] == 0).all())
+    d2_p, idx_p = nn_plain(T(a), T(b), T(valid), T(a_valid))
+    assert torch.equal(d2_p, d2_m) and torch.equal(idx_p, idx_m)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["all_queries", "query_mask"])
+def test_nn_packed_once_matches_per_call_packing(masked):
+    """References (and queries) packed once and reused for other queries,
+    as ICP does across its iterations, give what per-call packing gives."""
+    a, b, valid = _nn_case("ties")
+    a_valid = T(_query_mask(a)) if masked else None
+    refs = pack_references(T(b), T(valid))
+    queries = pack_queries(a_valid) if masked else None
+    for step in range(3):
+        moved = T(a + 0.1 * step)
+        got = nn_packed(moved, refs, queries)
+        want = nn(moved, T(b), T(valid), a_valid)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_nn_checks_shapes():
@@ -168,6 +213,47 @@ def test_icp_point_to_point_matches_jax(record_property):
         record_property(f"max_abs_err.{i}", float(np.abs(got[i] - want).max()))
     np.testing.assert_array_equal(got[2], init[2])  # < 3 valid sources: held
     assert np.abs(got[0] - init[0]).max() > 1e-2     # the others moved
+
+
+def _icp_every_query(src, tgt, src_valid, tgt_valid, init_pose, threshold, max_iterations):
+    """`icp_point_to_point` without the query mask: every source's nearest
+    neighbour, references packed on every iteration."""
+    from pcaccumulation_tpu_torch.ops import se3
+    from pcaccumulation_tpu_torch.ops.kabsch import weighted_kabsch
+
+    eye = torch.eye(4).expand(src.shape[0], 4, 4)
+    pose = eye
+    src_t = se3.apply_transform(src, init_pose)
+    w_valid = src_valid.to(src.dtype)
+    for _ in range(max_iterations):
+        d2, idx = nn(src_t, tgt, tgt_valid)
+        w = (d2 < threshold * threshold).to(src.dtype) * w_valid
+        matched = torch.gather(tgt, 1, idx.long()[..., None].expand(src_t.shape))
+        rot, trans = weighted_kabsch(src_t, matched, w)
+        delta = torch.where((w.sum(-1) >= 3)[:, None, None], se3.make_transform(rot, trans), eye)
+        pose = se3.compose(delta, pose)
+        src_t = se3.apply_transform(src_t, delta)
+    ok = (src_valid.sum(-1) >= 3) & (tgt_valid.sum(-1) >= 3)
+    return torch.where(ok[:, None, None], se3.compose(pose, init_pose), init_pose)
+
+
+@pytest.mark.parametrize("seed", [2, 13])
+def test_icp_query_mask_equals_every_query(seed):
+    """ICP with the query mask and the references packed once is bit for
+    bit ICP over every query: an invalid source has weight 0 either way,
+    and its matched row adds exact zeros to the Kabsch sums."""
+    rng = np.random.default_rng(seed)
+    tgt = (rng.random((4, 300, 3)) * 6 - 3).astype(np.float32)
+    src = (tgt + rng.normal(scale=0.05, size=tgt.shape)).astype(np.float32)
+    src_valid = rng.random((4, 300)) < 0.4
+    src_valid[3] = False
+    tgt_valid = rng.random((4, 300)) < 0.7
+    init = np.stack([_zrot(2.0 * i, [0.1 * i, 0.0, 0.0]) for i in range(4)])
+    args = (T(src), T(tgt), T(src_valid), T(tgt_valid), T(init))
+    got = ticp.icp_point_to_point(*args, threshold=0.3, max_iterations=6)
+    want = _icp_every_query(*args, threshold=0.3, max_iterations=6)
+    assert torch.equal(got, want)
+    assert float((got[:3] - T(init[:3])).abs().max()) > 1e-3  # the poses moved
 
 
 def test_refine_ego_poses_matches_jax(record_property):
@@ -338,20 +424,30 @@ def _nn_tolerance(a, b, idx):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["all_queries", "query_mask"])
 @pytest.mark.parametrize("kind", ["masks", "all_invalid", "ties"])
-@pytest.mark.parametrize("p,n,m", [(3, 300, 400), (4, 5000, 3000), (128, 1024, 1024)])
-def test_nn_kernel_matches_plain(cuda, kind, p, n, m):
+@pytest.mark.parametrize("p,n,m", [(3, 300, 400), (4, 5000, 3000), (128, 1024, 1024),
+                                   (2, 3000, 9000)])
+def test_nn_kernel_matches_plain(cuda, kind, p, n, m, masked):
     """One launch; distances within the plain version's rounding; the
     argmins equal wherever the two candidates are farther apart than that
     (the difference form and the expansion can order a near tie either
-    way); exact ties go to the lower index; no valid reference: 1e30, 0."""
+    way); exact ties go to the lower index; no valid reference: 1e30, 0;
+    with a query mask, the queries not asked for are (1e30, 0). m = 9000
+    spreads the references over several blocks, whose minima are merged."""
     a, b, valid = (T(x).to(cuda) for x in _nn_case(kind, seed=9, p=p, n=n, m=m))
     a = a * 5.0 + 20.0  # up to 70 m from the origin
     b = b * 5.0 + 20.0
+    a_valid = T(_query_mask(a.cpu().numpy())).to(cuda) if masked else None
+    if masked and kind == "ties":
+        a_valid[:, :60] = True  # the queries on duplicated references
     before = nn.launches
-    d2, idx = nn(a, b, valid)
+    d2, idx = nn(a, b, valid, a_valid)
     assert nn.launches == before + 1
-    want_d, want_i = nn_plain(a, b, valid)
+    want_d, want_i = nn_plain(a, b, valid, a_valid)
+    if masked:
+        assert bool((d2[~a_valid] == 1e30).all()) and bool((idx[~a_valid] == 0).all())
+        assert torch.equal(want_d[~a_valid], d2[~a_valid])
     tol = _nn_tolerance(a, b, want_i)
     assert bool(((d2 - want_d).abs() <= tol).all())
 
@@ -385,7 +481,7 @@ def test_chamfer_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r,w,c", [(16, 32, 8), (4 * 288, 288, 32)])
+@pytest.mark.parametrize("r,w,c", [(16, 32, 8), (4 * 288, 288, 32), (4 * 288, 288, 9)])
 def test_row_shift_kernel_matches_plain(cuda, r, w, c):
     """K3: one launch of the K2 kernel at n_blocks=1; its gradient another."""
     img, shifts = _row_shift_case(11, r=r, w=w, c=c)

@@ -174,7 +174,8 @@ def test_seg_pool_backward_kernel_matches_plain(cuda, op, n, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,r,w,c", [(1, 16, 32, 8), (5, 288, 288, 32)])
+@pytest.mark.parametrize("nb,r,w,c", [(1, 16, 32, 8), (5, 288, 288, 32), (11, 288, 288, 32),
+                                      (5, 288, 288, 9)])
 def test_row_shift_backward_kernel_matches_plain(cuda, nb, r, w, c):
     """The gradient through RowShift is one K2 launch at -shifts."""
     img, shifts = _row_shift_case(7, nb, r=r, w=w, c=c)
@@ -191,7 +192,8 @@ def test_row_shift_backward_kernel_matches_plain(cuda, nb, r, w, c):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nb,r,w,c", [(1, 16, 32, 8), (5, 16, 32, 8), (5, 288, 288, 32)])
+@pytest.mark.parametrize("nb,r,w,c", [(1, 16, 32, 8), (5, 16, 32, 8), (5, 288, 288, 32),
+                                      (11, 288, 288, 32), (5, 288, 288, 9), (3, 40, 1500, 12)])
 def test_row_shift_kernel_matches_plain(cuda, nb, r, w, c):
     img, shifts = _row_shift_case(4, nb, r=r, w=w, c=c)
     it, st = torch.from_numpy(img).to(cuda), torch.from_numpy(shifts).to(cuda)
@@ -201,3 +203,18 @@ def test_row_shift_kernel_matches_plain(cuda, nb, r, w, c):
     k = torch.floor(st)
     want = row_shift_blocks_plain(it, k.clamp(-w, w).to(torch.int32), (st - k), nb)
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_row_shift_kernel_on_misaligned_image(cuda):
+    """An image that starts 4 bytes past a 16-byte boundary takes the
+    kernel's one-channel-per-thread path, with the same result."""
+    img, shifts = _row_shift_case(9, 5, r=64, w=96, c=8)
+    flat = torch.empty(img.size + 1, device=cuda)
+    it = flat[1:].view(img.shape)
+    it.copy_(torch.from_numpy(img))
+    assert it.data_ptr() % 16 != 0
+    st = torch.from_numpy(shifts).to(cuda)
+    k = torch.floor(st)
+    want = row_shift_blocks_plain(it, k.clamp(-96, 96).to(torch.int32), (st - k), 5)
+    torch.testing.assert_close(row_shift_blocks(it, st, 5), want, rtol=1e-6, atol=1e-6)
