@@ -22,6 +22,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+HOST_ONLY_FLAGS = {"-shared", "-Xcompiler", "-fPIC"}  # of the shared library, not the device code
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -29,7 +30,8 @@ _I32 = ctypes.c_int
 # C entry points of each source: name -> (argtypes); every one returns int
 SIGNATURES = {
     "segscan": {
-        "segpool_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _P],
+        "segpool_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
+        "segpool_backward_max": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
     },
     "row_shift": {
         "row_shift_blocks_forward": [_P, _P, _P, _I64, _I32, _I32, _I32, ctypes.c_float, _P],
@@ -98,6 +100,16 @@ def build_all() -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def ptxas_report(name: str) -> str:
+    """What ptxas says of each kernel of csrc/<name>.cu (registers, shared
+    memory, spills): a compile to a throw-away cubin with `-Xptxas -v`."""
+    device_flags = [f for f in NVCC_FLAGS if f not in HOST_ONLY_FLAGS]
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_nvcc(), *device_flags, "-cubin", "-Xptxas", "-v",
+               "-o", os.path.join(tmp, f"{name}.cubin"), str(CSRC / f"{name}.cu")]
+        return subprocess.run(cmd, capture_output=True, text=True, check=True).stderr
 
 
 def load_library(name: str) -> ctypes.CDLL:

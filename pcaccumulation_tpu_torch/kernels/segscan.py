@@ -4,14 +4,19 @@ their plain versions.
 `seg_pool(x, ids, op)` returns [N, C] where row i holds the `op`-reduce
 (max or sum) over all rows sharing ids[i]; ids are non-decreasing. It is
 the fused scatter-reduce + gather-back of PillarFeatureNet's local pooling.
-On a CUDA tensor it launches the kernel of `csrc/segscan.cu` (which replaces
-the TPU kernel `pcaccumulation_tpu/kernels/segscan.py::_seg_pool_impl`); on
-a CPU tensor it runs `seg_pool_plain`.
+On a CUDA tensor it calls the C entry point `segpool_forward` of
+`csrc/segscan.cu` (which replaces the TPU kernel
+`pcaccumulation_tpu/kernels/segscan.py::_seg_pool_impl`): two launches, the
+partials of the runs that cross a tile edge and then each tile reduced and
+written once, with no [N, C] table and no atomics, so that two calls give
+the same bits; on a CPU tensor it runs `seg_pool_plain`.
 
-Its gradient (`SegPool`, the JAX package's `_seg_pool_bwd`) is one more
-sum-pool launch of the same kernel: for max, over the cotangent packed
-beside the tie mask ([N, 2C]), whose sums split each segment's cotangent
-evenly among its tied maxima; for sum, over the cotangent.
+Its gradient (`SegPool`, the JAX package's `_seg_pool_bwd`) is one fused
+kernel of the same two-launch shape, `segpool_backward_max`: it reads x, y
+and g once, sums g and the tie mask (x == y) over each segment, and writes
+tie ? sum(g) / max(ties, 1) : 0, the even split of each segment's cotangent
+among its tied maxima, with no pack or [N, C] temporary. For sum the
+gradient is the forward's sum-pool of g.
 """
 
 from __future__ import annotations
@@ -36,61 +41,85 @@ def seg_pool_plain(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch
     return table[run]
 
 
+TILE_ROWS = 256  # rows of a tile: TILE in csrc/segscan.cu
+
+
+def _scratch(x: torch.Tensor, payload: int) -> torch.Tensor:
+    """The kernel's scratch: two partials [n_tiles, payload, C] and the
+    tile flags, O(N / TILE_ROWS * C) floats."""
+    n, c = x.shape
+    n_tiles = -(-n // TILE_ROWS)
+    return torch.empty(n_tiles * (2 * payload * c + 1), dtype=torch.float32, device=x.device)
+
+
+def _check_kernel_inputs(ids: torch.Tensor, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"seg_pool kernel takes float32, got {t.dtype}")
+    if ids.dtype != torch.int32:
+        raise TypeError(f"seg_pool kernel takes int32 ids, got {ids.dtype}")
+    n, c = tensors[0].shape
+    if n * c >= 2 ** 31:
+        raise ValueError(f"seg_pool kernel: [{n}, {c}] overflows its 32-bit element index")
+
+
 def _pool(x: torch.Tensor, ids: torch.Tensor, op: str) -> tuple[torch.Tensor, bool]:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor.
-    Returns (out, launched)."""
+    """The kernel on a CUDA tensor (one C call), the plain version on a CPU
+    tensor. Returns (out, launched)."""
     if x.device.type == "cpu":
         return seg_pool_plain(x, ids, op), False
-    if x.dtype != torch.float32 or ids.dtype != torch.int32:
-        raise TypeError(f"seg_pool kernel takes float32 x and int32 ids, got {x.dtype}, "
-                        f"{ids.dtype}")
-    x = x.contiguous()
-    ids = ids.contiguous()
+    x, ids = x.contiguous(), ids.contiguous()
+    _check_kernel_inputs(ids, x)
     n, c = x.shape
-    table = torch.full_like(x, float("-inf") if op == "max" else 0.0)
-    out = torch.empty_like(x)
-    lib = build.load_library("segscan")
-    rc = lib.segpool_forward(
-        x.data_ptr(), ids.data_ptr(), table.data_ptr(), out.data_ptr(), n, c,
-        0 if op == "max" else 1, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    scratch = _scratch(x, 1)
+    rc = build.load_library("segscan").segpool_forward(
+        x.data_ptr(), ids.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c,
+        0 if op == "max" else 1, build.stream(x))
     build.check(rc, "segscan")
     return out, True
 
 
+def _backward_max(x, ids, y, g) -> torch.Tensor:
+    """The fused gradient kernel of max on CUDA tensors (one C call)."""
+    x, y, g, ids = x.contiguous(), y.contiguous(), g.contiguous(), ids.contiguous()
+    _check_kernel_inputs(ids, x, y, g)
+    n, c = x.shape
+    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    scratch = _scratch(x, 2)
+    rc = build.load_library("segscan").segpool_backward_max(
+        x.data_ptr(), y.data_ptr(), g.data_ptr(), ids.data_ptr(), out.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), n, c, build.stream(x))
+    build.check(rc, "segscan")
+    return out
+
+
 def seg_pool_backward_plain(x, ids, y, g, op: str = "max") -> torch.Tensor:
     """Plain version of the gradient; see `seg_pool_backward`."""
-    return _backward(x, ids, y, g, op, seg_pool_plain)
-
-
-def _backward(x, ids, y, g, op, sum_pool) -> torch.Tensor:
+    gs = seg_pool_plain(g.float(), ids, "sum")
     if op == "sum":
-        return sum_pool(g.float(), ids, "sum")
-    c = x.shape[1]
+        return gs
     tie = x == y
-    packed = torch.cat([g.float(), tie.float()], dim=-1)  # [N, 2C]
-    ps = sum_pool(packed, ids, "sum")
-    gs, nt = ps[:, :c], ps[:, c:]
+    nt = seg_pool_plain(tie.float(), ids, "sum")
     return torch.where(tie, gs / torch.clamp(nt, min=1.0), 0.0).to(x.dtype)
 
 
 def seg_pool_backward(x: torch.Tensor, ids: torch.Tensor, y: torch.Tensor,
                       g: torch.Tensor, op: str = "max") -> torch.Tensor:
-    """Gradient of `seg_pool` for the cotangent g [N, C] of its output y.
+    """Gradient of `seg_pool` for the cotangent g [N, C] of its output y
+    (one value per segment, as `seg_pool` gives it).
 
     Max: every row that ties its segment's maximum gets the segment's
     cotangent sum divided by the number of tied rows, other rows zero (the
     even split of JAX's segment_max gradient). Sum: the segment's cotangent
-    sum. One K1 sum launch on a CUDA tensor; the plain sum-pool on a CPU
-    tensor.
+    sum. One C call on a CUDA tensor (the fused gradient kernel for max, the
+    forward kernel's sum for sum); the plain version on a CPU tensor.
     """
-
-    def sum_pool(a, i, op_):
-        out, launched = _pool(a, i, op_)
-        seg_pool_backward.launches += launched
-        return out
-
-    return _backward(x, ids, y, g, op, sum_pool)
+    if x.device.type == "cpu":
+        return seg_pool_backward_plain(x, ids, y, g, op)
+    out = _pool(g, ids, "sum")[0] if op == "sum" else _backward_max(x, ids, y, g)
+    seg_pool_backward.launches += 1
+    return out
 
 
 class SegPool(torch.autograd.Function):

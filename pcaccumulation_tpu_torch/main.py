@@ -19,7 +19,7 @@ import shutil
 import sys
 
 from pcaccumulation_tpu_torch import build_model
-from pcaccumulation_tpu_torch.config import load_config, save_config
+from pcaccumulation_tpu_torch.config import check_supported, load_config, save_config
 from pcaccumulation_tpu_torch.data.dataset import SceneDataset
 from pcaccumulation_tpu_torch.data.loader import make_loader
 from pcaccumulation_tpu_torch.utils.logging import setup_seed
@@ -56,6 +56,7 @@ def main(argv: list[str]) -> int:
     cfg = load_config(config_path, overrides=argv[4:])
     cfg["train"]["batch_size"] = batch_size
     cfg["train"]["iter_size"] = iter_size
+    check_supported(cfg)
     mode = cfg["misc"]["mode"]
     if mode not in ("train", "val", "test"):
         raise ValueError(f"mode={mode!r}: train, val or test")

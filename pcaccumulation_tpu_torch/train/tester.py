@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from pcaccumulation_tpu_torch import resolve_device, to_device
+from pcaccumulation_tpu_torch.config import check_supported
 from pcaccumulation_tpu_torch.data.dataset import SceneDataset
 from pcaccumulation_tpu_torch.data.loader import make_loader
 from pcaccumulation_tpu_torch.ops import se3
@@ -44,6 +45,7 @@ class Tester:
     checkpoint of the port's Trainer to load."""
 
     def __init__(self, cfg, model, save_dir=None, device=None, results_dir=None):
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()

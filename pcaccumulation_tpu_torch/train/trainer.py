@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from pcaccumulation_tpu_torch import resolve_device, to_device
+from pcaccumulation_tpu_torch.config import check_supported
 from pcaccumulation_tpu_torch.train.loss import fuse_loss
 from pcaccumulation_tpu_torch.train.metrics import (
     compute_mean_iou_recall_precision,
@@ -161,6 +162,7 @@ class Trainer:
     "val"} iterables of collated numpy batches; device: None = CUDA."""
 
     def __init__(self, cfg, model, loaders, save_dir=None, device=None):
+        check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)

@@ -43,6 +43,57 @@ def _k1_case(seed, n=1500, c=32, tail=400):
     return x, ids
 
 
+R = 256  # K1's tile rows (TILE_ROWS)
+
+
+def _lengths_ids(lengths):
+    return np.repeat(np.arange(len(lengths), dtype=np.int32) * 3, lengths)
+
+
+def _k1_edge_ids(name, rng):
+    """Sorted ids at K1's tile edges: N in {1, R-1, R, R+1, 2R+3} with short
+    runs, runs ending exactly on tile boundaries and on half-tile
+    boundaries, runs of R and R+1 rows (and of 128 and 129), one run
+    over all rows, and a sample of 90,000 rows with long runs and a
+    40,000-row tail."""
+    if name.startswith("n="):
+        n = int(name[2:])
+        return np.sort(rng.integers(0, n // 3 + 1, size=n)).astype(np.int32)
+    if name == "on_tile_edges":
+        return _lengths_ids([R, R, 5, R - 5, R + 1, R - 1, 3])
+    if name == "runs_R_R+1":
+        return _lengths_ids([7, R, R + 1, 1, 2 * R + 9, 30])
+    if name == "on_tile_edges_128":
+        return _lengths_ids([128, 128, 5, 123, 129, 127, 3, 128, 129])
+    if name == "one_run":
+        return np.zeros(10 * R + 17, np.int32)
+    assert name == "tail_90000"
+    lengths = []
+    while sum(lengths) < 50000:
+        lengths.append(int(rng.integers(300, 3000)) if rng.random() < 0.02
+                       else int(rng.integers(1, 12)))
+    body = _lengths_ids(lengths)[:50000]
+    return np.concatenate([body, np.full(40000, body[-1] + 7, np.int32)])
+
+
+K1_EDGES = ["n=1", f"n={R - 1}", f"n={R}", f"n={R + 1}", f"n={2 * R + 3}", "on_tile_edges",
+            "runs_R_R+1", "on_tile_edges_128", "one_run", "tail_90000"]
+
+
+def _k1_edge_case(name, c, seed=11):
+    """(x, ids, g) at a tile-edge case: x with values rounded to halves on
+    every other row (maxima tie), the tail of tail_90000 at -1e30."""
+    rng = np.random.default_rng(seed)
+    ids = _k1_edge_ids(name, rng)
+    n = ids.size
+    x = rng.standard_normal((n, c)).astype(np.float32)
+    x[::2] = np.round(x[::2] * 2) / 2
+    if name == "tail_90000":
+        x[n - 40000:] = -1e30
+    g = rng.standard_normal((n, c)).astype(np.float32)
+    return x, ids, g
+
+
 def _row_shift_case(seed, nb, r=16, w=32, c=8):
     rng = np.random.default_rng(seed)
     img = rng.normal(size=(r, w, nb * c)).astype(np.float32)
@@ -82,6 +133,43 @@ def test_seg_pool_plain_matches_pallas_interpret(jax_segscan, op, rblk):
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
+def _jax_seg_pool_vjp(jax_segscan, op):
+    """jax.vjp of the JAX package's seg_pool, jitted: one compile per shape."""
+    import jax
+
+    def vjp(x, ids, g):
+        return jax.vjp(lambda xj: jax_segscan.seg_pool(xj, ids, op), x)[1](g)[0]
+
+    return jax.jit(vjp)
+
+
+@pytest.mark.parametrize("name", K1_EDGES)
+def test_seg_pool_plain_matches_jax_at_tile_edges(jax_segscan, name):
+    """The plain forward (max and sum) and the plain gradient (max with
+    ties, and sum) against the JAX package's seg_pool_ref and jax.vjp of
+    its seg_pool, at K1's tile edges: max exact, sums within 1e-5 of the
+    segment's sum of |.| (float32 order)."""
+    import jax.numpy as jnp
+
+    x, ids, g = _k1_edge_case(name, 32)
+    xt, it, gt = torch.from_numpy(x), torch.from_numpy(ids), torch.from_numpy(g)
+    for op in ("max", "sum"):
+        want = np.asarray(jax_segscan.seg_pool_ref(jnp.asarray(x), jnp.asarray(ids), op))
+        got = seg_pool_plain(xt, it, op).numpy()
+        if op == "max":
+            np.testing.assert_array_equal(got, want)
+        else:
+            abs_sum = seg_pool_plain(xt.abs(), it, "sum").numpy()
+            assert np.all(np.abs(got - want) <= 1e-5 * abs_sum + 1e-6)
+        want_g = np.asarray(_jax_seg_pool_vjp(jax_segscan, op)(x, ids, g))
+        got_g = seg_pool_backward_plain(xt, it, seg_pool_plain(xt, it, op), gt, op).numpy()
+        abs_g = seg_pool_plain(gt.abs(), it, "sum").numpy()
+        assert np.all(np.abs(got_g - want_g) <= 1e-5 * abs_g + 1e-6), (op, name)
+        if op == "max":
+            off = x != seg_pool_plain(xt, it, "max").numpy()
+            np.testing.assert_array_equal(got_g[off], 0.0)
+
+
 def test_seg_pool_cpu_dispatch_and_checks():
     x, ids = _k1_case(1, n=300, c=5, tail=50)
     xt, it = torch.from_numpy(x), torch.from_numpy(ids)
@@ -92,6 +180,16 @@ def test_seg_pool_cpu_dispatch_and_checks():
         seg_pool(xt, it.flip(0), "max")
     with pytest.raises(ValueError, match="op"):
         seg_pool(xt, it, "mean")
+    # what the kernel's wrapper refuses before a launch
+    from pcaccumulation_tpu_torch.kernels.segscan import _check_kernel_inputs
+
+    with pytest.raises(TypeError, match="float32"):
+        _check_kernel_inputs(it, xt.double())
+    with pytest.raises(TypeError, match="int32"):
+        _check_kernel_inputs(it.long(), xt)
+    huge = torch.zeros(1, 1).expand(2 ** 26, 32)  # 2^31 elements, no memory
+    with pytest.raises(ValueError, match="32-bit"):
+        _check_kernel_inputs(torch.zeros(2 ** 26, dtype=torch.int32), huge)
 
 
 @pytest.mark.parametrize("nb", [1, 4, 5])
@@ -140,19 +238,11 @@ def test_seg_pool_kernel_matches_plain(cuda, n, c):
 
 
 @pytest.mark.cuda
-def test_seg_pool_kernel_one_run_over_all_tiles(cuda):
-    x = torch.randn((5000, 32), generator=torch.Generator().manual_seed(3)).to(cuda)
-    ids = torch.zeros(5000, dtype=torch.int32, device=cuda)
-    got = seg_pool(x, ids, "max")
-    assert torch.equal(got, x.amax(0, keepdim=True).expand_as(x))
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("op", ["max", "sum"])
 @pytest.mark.parametrize("n,c", [(1500, 32), (90000, 32), (777, 9)])
 def test_seg_pool_backward_kernel_matches_plain(cuda, op, n, c):
-    """The gradient through SegPool launches K1 once (sum over the [N, 2C]
-    pack for max) and matches the plain gradient within 1e-5 of the
+    """The gradient through SegPool is one C call (the fused gradient kernel
+    for max, the forward's sum for sum) and matches the plain gradient within 1e-5 of the
     segment's sum of |g|; for max it is exactly zero off the tie set.
     Integer-valued x forces ties."""
     x, ids = _k1_case(5, n=n, c=c, tail=n // 3)
@@ -171,6 +261,57 @@ def test_seg_pool_backward_kernel_matches_plain(cuda, op, n, c):
     if op == "max":
         off = xd != seg_pool_plain(xd, it, "max")
         assert bool((xt.grad[off] == 0).all())
+
+
+@pytest.mark.cuda
+def test_seg_pool_kernel_one_run_over_all_tiles(cuda):
+    x = torch.randn((5000, 32), generator=torch.Generator().manual_seed(3)).to(cuda)
+    ids = torch.zeros(5000, dtype=torch.int32, device=cuda)
+    got = seg_pool(x, ids, "max")
+    assert torch.equal(got, x.amax(0, keepdim=True).expand_as(x))
+
+
+def _k1_cuda_cases():
+    cases = [(name, 32) for name in K1_EDGES] + [("b4_360000", 32)]
+    return cases + [(name, c) for c in (9, 128) for name in ("n=515", "on_tile_edges",
+                                                             "runs_R_R+1", "on_tile_edges_128",
+                                                             "one_run")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c", _k1_cuda_cases())
+def test_seg_pool_kernels_at_tile_edges(cuda, name, c):
+    """K1's forward and gradient at the tile edges: max bit-exact, sum and
+    the gradient within 1e-5 of the segment's sum of |.| of the plain
+    versions in float64 (on the card the float32 plain sum adds a run's
+    rows one by one through atomics, 2e-4 off over the 40,000-row tail),
+    the gradient zero off the tie set, and two calls of each
+    bit-identical."""
+    if name == "b4_360000":  # four samples of tail_90000, ids offset per sample
+        parts = [_k1_edge_case("tail_90000", c, seed=s) for s in range(4)]
+        offs = np.cumsum([0] + [int(p[1][-1]) + 1 for p in parts[:-1]]).astype(np.int32)
+        x, ids, g = (np.concatenate(a) for a in zip(*[(p[0], p[1] + o, p[2])
+                                                       for p, o in zip(parts, offs)]))
+    else:
+        x, ids, g = _k1_edge_case(name, c)
+    xt, it, gt = (torch.from_numpy(a).to(cuda) for a in (x, ids, g))
+    y = seg_pool(xt, it, "max")
+    assert torch.equal(y, seg_pool_plain(xt, it, "max"))
+    s1, s2 = seg_pool(xt, it, "sum"), seg_pool(xt, it, "sum")
+    assert torch.equal(s1, s2)
+    abs_x = seg_pool_plain(xt.abs(), it, "sum")
+    assert bool(((s1 - seg_pool_plain(xt.double(), it, "sum")).abs() <= 1e-5 * abs_x + 1e-6).all())
+    before = seg_pool_backward.launches
+    b1, b2 = seg_pool_backward(xt, it, y, gt), seg_pool_backward(xt, it, y, gt)
+    assert seg_pool_backward.launches == before + 2
+    assert torch.equal(b1, b2)
+    want = seg_pool_backward_plain(xt.double(), it, y.double(), gt.double())
+    abs_g = seg_pool_plain(gt.abs(), it, "sum")
+    assert bool(((b1 - want).abs() <= 1e-5 * abs_g + 1e-6).all())
+    assert bool((b1[xt != y] == 0).all())
+    # a cotangent that is a column slice of a wider gradient gives the same bits
+    wide = torch.cat([gt, gt], dim=1)[:, c:]
+    assert torch.equal(seg_pool_backward(xt, it, y, wide), b1)
 
 
 @pytest.mark.cuda

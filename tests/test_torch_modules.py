@@ -311,3 +311,26 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["main", str(REPO / "configs" / "synthetic.yaml"), "1", "1", "--misc.mode=test"])
+
+
+def test_draw_keypoints_marginal_is_uniform():
+    """The port's random keypoint draw never takes a masked pillar and its
+    marginal over the valid ones is uniform: the chi-square of
+    tests/test_model.py at its sizes (600 pillars, 400 valid, 64 drawn,
+    800 seeded generators)."""
+    from pcaccumulation_tpu_torch.models.egomotion import draw_keypoints
+
+    m, n_valid, n_draw, n_seeds = 600, 400, 64, 800
+    mask = torch.zeros((1, 1, m), dtype=torch.bool)
+    mask[..., :n_valid] = True
+    counts = torch.zeros(m, dtype=torch.int64)
+    for s in range(n_seeds):
+        idx = draw_keypoints(mask, n_draw, deterministic=False,
+                             generator=torch.Generator().manual_seed(s))
+        assert idx.unique().numel() == n_draw  # without replacement
+        counts += torch.bincount(idx.reshape(-1), minlength=m)
+    assert int(counts[n_valid:].sum()) == 0  # never draws masked rows
+    expected = n_seeds * n_draw / n_valid
+    chi2 = float(((counts[:n_valid].double() - expected) ** 2 / expected).sum())
+    # chi2 ~ ChiSq(n_valid - 1): mean 399, std ~28; 6 sigma ~ [230, 570]
+    assert 230 < chi2 < 570, chi2
