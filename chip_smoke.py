@@ -9,7 +9,9 @@ bit-identical, timed through the wrapper and through the C entry point;
 K2 row_shift_blocks at T=5, at T=11 and at C=9, K3
 row_shift through warp_bev / warp_bev_batch, K4 nn at the ICP shapes with
 and without a query mask and with references packed once, and the Chamfer
-distance on K4), then drives the paths of the port at the full default
+distance on K4; the bf16 kernels of K1 at the tile edges and at
+[120000, 32] and of K2 at [288, 288, 352] nb=11 and at C=9, K3 in bf16
+once), then drives the paths of the port at the full default
 config (configs/default.yaml: T=5, 288x288 BEV, 90k points, 30k pillars,
 float32) with seeded random weights on synthetic scenes, the FB and MOS
 heads' biases set to scene 0's label shares (`calibrate_heads`), so that
@@ -29,13 +31,19 @@ the ego head sees background:
   random keypoint draw): FuseLoss, backward, optimizer; loss terms finite,
   parameters moved, kernel launches counted, timed, peak memory; and the
   card's gradient held against the CPU's (B=1, eval BN, deterministic
-  keypoints).
+  keypoints);
+- the nuScenes preset (configs/nuscene.yaml: T=11, 288x288 BEV, 120,000
+  points, 40,000 pillars, compute_dtype bfloat16) on calibrated heads:
+  the bf16 val forward (launch counts per kernel and dtype: K1-bf16 2 and
+  K2-bf16 3 per forward, no float32 K1 or K2) and the test forward with
+  both ICPs, each held against the float32 forward on the same weights
+  and batch and timed beside it; the CLI's test mode on the preset.
 Any failure exits non-zero. The last two lines of stdout are the `kernels`
 JSON line and the result line `{"ok": true, "device": {...}}`. Without a
 CUDA device it exits 1 and prints no result. With `--only kernels` it stops
 after the build (with ptxas's report on csrc/segscan.cu) and the kernel
-phases, prints K1's rows of the `kernels` line (launches null: no path
-ran) and no result line.
+phases, prints K1's rows and the bf16 rows of the `kernels` line
+(launches null: no path ran) and no result line.
 """
 
 from __future__ import annotations
@@ -86,10 +94,10 @@ def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def k1_inputs(gen: torch.Generator, dev) -> tuple[torch.Tensor, torch.Tensor]:
-    """[90000, 32] f32 and sorted int32 ids: short runs, runs longer than
+def k1_inputs(gen: torch.Generator, dev, n: int = 90000) -> tuple[torch.Tensor, torch.Tensor]:
+    """[n, 32] f32 and sorted int32 ids: short runs, runs longer than
     any tile, and one run of 40,000 rows of -1e30 (a padded tail)."""
-    n, c, tail = 90000, 32, 40000
+    c, tail = 32, 40000
     lengths = []
     while sum(lengths) < n - tail:
         r = int(torch.randint(0, 50, (1,), generator=gen))
@@ -399,6 +407,178 @@ def k1_timings(x, ids, x4, ids4, g4, k1_err: float, k1b_err: float) -> dict:
     return rows
 
 
+def bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values (8 significant bits) at |a|, float32."""
+    a = a.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def k1_bf16_check(what: str, x: torch.Tensor, ids: torch.Tensor) -> tuple[float, float]:
+    """K1's bf16 kernel against its plain version (float32 reduction, one
+    rounding) on bf16 x: max torch.equal; sum within 1 bf16 ulp of the
+    result plus 1e-5 of the segment's sum of |x| (the two float32 sums add
+    in other orders); two calls of the sum torch.equal. One launch per call
+    on `seg_pool.launches_bf16`, none on the float32 count. Returns the max
+    abs errors of (max, sum)."""
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_plain
+
+    before = seg_pool.launches, seg_pool.launches_bf16
+    y = seg_pool(x, ids, "max")
+    if (seg_pool.launches, seg_pool.launches_bf16) != (before[0], before[1] + 1):
+        fail(f"K1 bf16 ({what}): not one launch of the bf16 kernel (counts {before} -> "
+             f"{(seg_pool.launches, seg_pool.launches_bf16)})")
+    want_y = seg_pool_plain(x, ids, "max")
+    if y.dtype != torch.bfloat16 or not torch.equal(y, want_y):
+        fail(f"K1 bf16 max ({what}) differs from the plain version "
+             f"({float((y.float() - want_y.float()).abs().max())})")
+    s1, s2 = seg_pool(x, ids, "sum"), seg_pool(x, ids, "sum")
+    want_s = seg_pool_plain(x, ids, "sum").float()
+    tol = (bf16_ulp(torch.maximum(want_s.abs(), s1.float().abs()))
+           + 1e-5 * seg_pool_plain(x.float().abs(), ids, "sum"))
+    err_s = (s1.float() - want_s).abs()
+    if not bool((err_s <= tol).all()):
+        fail(f"K1 bf16 sum ({what}) beyond 1 bf16 ulp of the plain version")
+    if not torch.equal(s1, s2):
+        fail(f"K1 bf16 sum ({what}): two calls differ")
+    torch.cuda.synchronize()
+    return float((y.float() - want_y.float()).abs().max()), float(err_s.max())
+
+
+def k2_bf16_check(what: str, img: torch.Tensor, shifts: torch.Tensor, nb: int,
+                  counted) -> tuple[torch.Tensor, float]:
+    """The bf16 row shift (`row_shift_blocks`, or `row_shift` at nb=1)
+    against the plain version on the same bf16 image, within 1 bf16 ulp;
+    one launch on `counted.launches_bf16`. Returns (plain result, max abs
+    error)."""
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks_plain
+
+    w = img.shape[1]
+    before = counted.launches, counted.launches_bf16
+    got = (row_shift(img, shifts[:, 0]) if counted is row_shift
+           else counted(img, shifts, nb))
+    if (counted.launches, counted.launches_bf16) != (before[0], before[1] + 1):
+        fail(f"{what}: not one launch of the bf16 kernel")
+    k = torch.floor(shifts)
+    want = row_shift_blocks_plain(img, k.clamp(-w, w).to(torch.int32), (shifts - k).float(), nb)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    if got.dtype != torch.bfloat16 or not bool(
+            (err <= bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).all()):
+        fail(f"{what} differs from the plain version beyond 1 bf16 ulp ({float(err.max())})")
+    return want, float(err.max())
+
+
+def bf16_kernel_phase(dev, gen) -> dict:
+    """The bf16 kernels of K1 and K2 against their plain versions: K1 at
+    PR 6's tile edges (C=32, and C=9 on the small cases) and at the
+    nuScenes pillar encoder's shape [120000, 32]; K2 at the nuScenes warp's
+    [288, 288, 352] nb=11 and at C=9 (the one-channel path), K3 (K2's kernel
+    at one shift per row) at [1152, 288, 32] once. Timings at the nuScenes
+    shapes against the bounds and, for K2, `F.grid_sample` on the same bf16
+    canvas. Returns the two rows of the `kernels` line (launches None until
+    the nuScenes path's counts are read)."""
+    from pcaccumulation_tpu_torch.kernels import build
+    from pcaccumulation_tpu_torch.kernels.row_shift import (
+        row_shift,
+        row_shift_blocks,
+        row_shift_blocks_plain,
+    )
+    from pcaccumulation_tpu_torch.kernels.segscan import TILE_ROWS, seg_pool, seg_pool_plain
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 7)
+    cases = [(name, 32) for name in K1_EDGES] + [(name, 9) for name in K1_EDGES[:9]]
+    worst = [0.0, 0.0]
+    for name, c in cases:
+        x, ids, _ = k1_edge_case(name, c, rng)
+        errs = k1_bf16_check(f"{name}, C={c}", torch.from_numpy(x).to(dev).to(bf),
+                             torch.from_numpy(ids).to(dev))
+        worst = [max(a, b) for a, b in zip(worst, errs)]
+    x, ids = k1_inputs(gen, dev, n=120000)
+    xb = x.to(bf)
+    k1_err = k1_bf16_check("[120000, 32]", xb, ids)
+    log(f"K1 bf16 at the tile edges ({len(cases)} cases) and at [120000, 32]: max torch.equal "
+        f"to the plain version; sum max abs err {max(worst[1], k1_err[1]):.2e} (tol 1 bf16 ulp "
+        f"+ 1e-5 of the segment's sum|x|); two calls equal")
+
+    # K2 at the nuScenes warp's shape and at C = 9; K3 at [1152, 288, 32]
+    k2_errs = {}
+    for nb_x, c_x in ((11, 32), (5, 9)):
+        img32, shifts = k2_inputs(gen, dev, nb_x, c_x)
+        img_b = img32.to(bf)
+        want, k2_errs[(nb_x, c_x)] = k2_bf16_check(f"K2 bf16 nb={nb_x} C={c_x}", img_b, shifts,
+                                                   nb_x, row_shift_blocks)
+        if nb_x == 11:
+            img_n, shifts_n, want_n = img_b, shifts, want
+    img3 = torch.randn((1152, 288, 32), generator=gen).to(dev).to(bf)
+    sh3 = ((torch.rand((1152, 1), generator=gen) - 0.5) * 40.0).to(dev)
+    _, k3_err = k2_bf16_check("K3 bf16 [1152, 288, 32]", img3, sh3, 1, row_shift)
+    log(f"K2 bf16 [288, 288, 352] nb=11: max abs err {k2_errs[(11, 32)]:.2e}, [288, 288, 45] "
+        f"nb=5 C=9: {k2_errs[(5, 9)]:.2e}; K3 bf16 [1152, 288, 32]: {k3_err:.2e} (tol 1 bf16 "
+        f"ulp of the plain version)")
+
+    # timings at the nuScenes shapes
+    lib = build.load_library("segscan")
+    stream = build.stream(xb)
+    n, c = xb.shape
+    out = torch.empty_like(xb)
+    scratch = torch.empty(-(-n // TILE_ROWS) * (2 * c + 1), device=dev)
+
+    def entry_fwd():
+        lib.segpool_forward_bf16(xb.data_ptr(), ids.data_ptr(), out.data_ptr(),
+                                 scratch.data_ptr(), scratch.numel(), n, c, 0, stream)
+
+    k1_bound, k1_by = bound_ms(2 * n * c * 2 + n * 4, n * c)
+    r, w, ctot = img_n.shape
+    k = torch.floor(shifts_n)
+    ki, fr = k.clamp(-w, w).to(torch.int32), (shifts_n - k).float()
+    k2_bound, k2_by = bound_ms(2 * img_n.numel() * 2 + shifts_n.numel() * 4, 3 * img_n.numel())
+    # yardstick: grid_sample on the bf16 canvas laid out [R*nb, C, 1, W]
+    # (the layout copy untimed); its grid is bf16 too (grid_sample takes
+    # one dtype), so it computes the shift only to ~0.5 px: a timing only
+    nb = 11
+    img_g = img_n.reshape(r, w, nb, ctot // nb).permute(0, 2, 3, 1).reshape(r * nb, ctot // nb,
+                                                                          1, w)
+    xs = (torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+          + (ki.float() + fr).reshape(-1, 1))
+    grid = torch.stack([(2 * xs + 1) / w - 1, torch.zeros_like(xs)], -1)[:, None].to(bf)
+    rows = {
+        "seg_pool_bf16": {
+            "name": "seg_pool_bf16", "route": "cuda",
+            "source": "pcaccumulation_tpu_torch/csrc/segscan.cu",
+            "replaces": "pcaccumulation_tpu/kernels/segscan.py:153",
+            "launches": None, "max_abs_err": k1_err[0],
+            "ms": cuda_ms(lambda: seg_pool(xb, ids, "max"), iters=200),
+            "plain_ms": cuda_ms(lambda: seg_pool_plain(xb, ids, "max")),
+            "bound_ms": k1_bound, "bound_by": k1_by,
+            "library_ms": None,  # no single PyTorch call reduces and broadcasts back
+            "entry_ms": cuda_ms_queued(entry_fwd, iters=200),
+        },
+        "row_shift_blocks_bf16": {
+            "name": "row_shift_blocks_bf16", "route": "cuda",
+            "source": "pcaccumulation_tpu_torch/csrc/row_shift.cu",
+            "replaces": "pcaccumulation_tpu/ops/bilinear.py:387",
+            "launches": None, "max_abs_err": k2_errs[(11, 32)],
+            "ms": cuda_ms(lambda: row_shift_blocks(img_n, shifts_n, nb)),
+            "plain_ms": cuda_ms(lambda: row_shift_blocks_plain(img_n, ki, fr, nb)),
+            "bound_ms": k2_bound, "bound_by": k2_by,
+            "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
+                img_g, grid, mode="bilinear", padding_mode="zeros", align_corners=False)),
+        },
+    }
+    # the float32 kernels at the same shapes, for the comparison in PERF.md
+    x32, img32n = xb.float(), img_n.float()
+    f32_ms = {"seg_pool": cuda_ms(lambda: seg_pool(x32, ids, "max"), iters=200),
+              "row_shift_blocks": cuda_ms(lambda: row_shift_blocks(img32n, shifts_n, nb))}
+    for key, row in rows.items():
+        log(f"{key}: {row['ms']:.4f} ms through the wrapper (float32 kernel at the same shape "
+            f"{f32_ms[key[:-5]]:.4f} ms); bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+            f"plain {row['plain_ms']:.4f} ms; library {row['library_ms']}"
+            + (f"; C entry queued {row['entry_ms']:.4f} ms" if "entry_ms" in row else ""))
+    del want_n
+    return rows
+
+
 def tie_values(x: torch.Tensor) -> torch.Tensor:
     """x with its values rounded to halves (the -1e30 rows kept): maxima tie
     inside most segments."""
@@ -434,6 +614,33 @@ def scaled_init(model: torch.nn.Module, seed: int) -> None:
                 mod.bias.copy_(0.05 * torch.randn(w.shape, generator=gen))
                 mod.running_mean.copy_(0.05 * torch.randn(w.shape, generator=gen))
                 mod.running_var.copy_(1.0 + 0.2 * torch.rand(w.shape, generator=gen))
+
+
+def flax_init(model: torch.nn.Module, seed: int) -> None:
+    """Seeded weights drawn as the JAX package's flax modules initialise
+    theirs (tests/test_precision.py's weights): kernels normal with
+    variance 1 / fan-in (lecun; the UNet's xavier is the same for equal
+    widths), biases zero, BatchNorm at the identity. With zero biases the
+    logits carry the signal of the input, so bf16's relative rounding moves
+    a decision only where two logits nearly tie (under torch's default
+    initialisation the FB logits of the 288x288 canvas are one bias apart
+    by ~1e-7, and bf16 rounding alone decides the split)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            w = getattr(mod, "weight", None)
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear,
+                                torch.nn.ConvTranspose2d)):
+                fan_in = (w.shape[0] if isinstance(mod, torch.nn.ConvTranspose2d)
+                          else w[0].numel())
+                w.copy_(torch.randn(w.shape, generator=gen) / fan_in ** 0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif hasattr(mod, "running_var"):
+                w.fill_(1.0)
+                mod.bias.zero_()
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
 
 
 def leaf_criterion(grads_a: dict, grads_b: dict) -> tuple[int, int, float, float, str]:
@@ -975,6 +1182,312 @@ def tester_phase(port) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def bf16_vs_f32(what: str, o16: dict, o32: dict, batch: dict, rec_share_min: float,
+                against_f32: bool = True) -> dict:
+    """A bf16 forward against a reference forward (the float32 one, or
+    the bf16 one on the CPU) on the same weights and batch, by
+    tests/test_precision.py's criteria as far as they are well posed at
+    the nuScenes width on seeded weights:
+    - FB decisions: every valid point whose pillar's reference logit
+      margin lies outside the band where the two forwards' logit drift can
+      move it (twice the largest drift of a valid pillar's logits) decides
+      alike; the band holds at most 10 % of the points (a path that
+      computes something else drifts by the logits' own scale, and its
+      band holds most of them). On seeded weights the margins are dense
+      about the threshold, and even one bf16 function summed in two orders
+      (the card's and the CPU's, compared below) splits a few points
+      differently; the overall share is reported.
+    - MOS decisions >= 99.5 % equal; ego poses within 5e-2.
+    - FB logits differ from float32's (`against_f32`), but by no more than
+      5 % of their largest magnitude (bf16's 2^-8 rounding over the ~25
+      layers from the canvas).
+    - rec_est within 0.05 at `rec_share_min` of the valid points, beyond
+      what the ego poses move the point (its transformed_points drift):
+      the ego criterion holds the poses, and at the preset's 36 m range a
+      pose entry 1e-3 apart moves a point by up to 4 cm.
+    Returns the measures."""
+    v = batch["point_valid"][0].cpu()
+    pv = batch["pillar_valid"][0].cpu()
+    p2v = batch["pillar_of_point"][0].cpu().long().clamp(0, pv.numel() - 1)
+    o16 = {k: x[0].float().cpu() for k, x in o16.items() if torch.is_tensor(x) and x.dim()}
+    o32 = {k: x[0].float().cpu() for k, x in o32.items() if torch.is_tensor(x) and x.dim()}
+    lp16, lp32 = o16["fb_logit_pillar"], o32["fb_logit_pillar"]
+    band = 2.0 * float((lp16 - lp32).abs()[pv].max())
+    clear = ((lp32[:, 1] - lp32[:, 0]).abs() > band)[p2v] & v
+    same_fb = o16["fb_est_per_points"] == o32["fb_est_per_points"]
+    m = {"fb_equal": float(same_fb[v].float().mean()),
+         "fb_equal_clear": float(same_fb[clear].float().mean()),
+         "fb_band_share": 1.0 - float(clear.sum()) / float(v.sum()),
+         "mos_equal": float((o16["mos_est"][v].argmax(-1) == o32["mos_est"][v].argmax(-1))
+                            .float().mean()),
+         "ego": float((o16["ego_motion_est"] - o32["ego_motion_est"]).abs().max()),
+         "fb_logits": float((o16["fb_seg_est"] - o32["fb_seg_est"]).abs().max()),
+         "fb_logits_scale": float(o32["fb_seg_est"].abs().max())}
+    rec = (o16["rec_est"] - o32["rec_est"]).abs().amax(-1)[v]
+    moved = (o16["transformed_points"] - o32["transformed_points"]).abs().amax(-1)[v]
+    m["rec_max"], m["points_max"] = float(rec.max()), float(moved.max())
+    m["rec_share"] = float((rec <= 0.05 + moved).float().mean())
+    if m["fb_equal_clear"] < 1.0 or m["fb_band_share"] > 0.10:
+        fail(f"{what}: FB decisions differ outside the logit drift's band: {m}")
+    if m["mos_equal"] < 0.995 or m["ego"] >= 5e-2:
+        fail(f"{what}: {m}")
+    if not (0.0 < m["fb_logits"] or not against_f32) or m["fb_logits"] > 0.05 * m[
+            "fb_logits_scale"]:
+        fail(f"{what}: the FB logits differ by 0 or by more than 5 % of their scale: {m}")
+    if m["rec_share"] < rec_share_min:
+        fail(f"{what}: rec_est within 0.05 beyond the ego drift at {m['rec_share']} of the "
+             f"points, want {rec_share_min}: {m}")
+    return m
+
+
+def nuscenes_phase(port, smi: str) -> tuple[dict, dict]:
+    """The nuScenes preset (configs/nuscene.yaml: T=11, 288x288 BEV, 120,000
+    points, 40,000 pillars, 48 instances, compute_dtype bfloat16) on the
+    card, seeded weights (`flax_init`; the TPointNet regressor's last layer
+    about the identity and the Sinkhorn temperature at 0.1, as trained
+    weights would have them), deterministic keypoints, the FB and MOS heads
+    calibrated on the float32 model: the bf16 val forward (this slice's
+    main path, counts zeroed before and read after: K1 and K2 in bf16, no
+    float32 kernel) and the test forward with both ICPs at 50 iterations,
+    each held against the float32 forward on the same weights and batch
+    (`bf16_vs_f32`), the val forward also against the bf16 forward on the
+    CPU, and timed beside the float32 ones. Returns (the bf16 launch counts of the val path,
+    the times)."""
+    import copy
+    import math
+
+    from pcaccumulation_tpu_torch.config import check_supported, load_config
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.kernels.chamfer import nn
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
+    from pcaccumulation_tpu_torch.data.dataset import prep_sample
+    from pcaccumulation_tpu_torch.data.synthetic import generate_sample
+    from pcaccumulation_tpu_torch.profile_forward import calibrate_heads, test_mode_config
+
+    t0 = time.perf_counter()
+    cfg16 = load_config("configs/nuscene.yaml",
+                        ["--misc.mode=val", "--train.ckpt_backend=pickle"])
+    check_supported(cfg16)
+    cfg16["pose_estimation"]["deterministic_sampling"] = True
+    cfg32 = copy.deepcopy(cfg16)
+    cfg32["precision"]["compute_dtype"] = "float32"
+    # scenes that fill the preset in all 11 sweeps: 32 static clusters and 6
+    # moving objects per sweep put ~10,700 points and ~3,300 pillars in each
+    # (default_scenes' T=5 density would leave the last sweeps past the
+    # 40,000-pillar capacity, and their ego poses at the identity)
+    batches = [port.to_device(collate([prep_sample(generate_sample(
+        seed=s, n_frames=11, freq=cfg16["data"]["freq"], n_static_clusters=32, n_dynamic=6,
+        pts_per_cluster=400, pts_per_object=230), cfg16)])) for s in range(2)]
+    n_fwd = len(batches)
+    m32 = port.build_model(cfg32)
+    flax_init(m32, SEED)
+    # a trained TPointNet regresses a residual motion; a seeded one regresses
+    # a random rotation of each instance about its centroid, which a
+    # bf16-sized change of its embeddings turns by metres at the instance's
+    # extent. Its last layer is scaled to a residual about the identity.
+    reg = m32.reconstructor.alignment.regressor[6]
+    with torch.no_grad():
+        reg.weight.mul_(0.01)
+        reg.bias.copy_(torch.tensor([0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0]))
+        # the learned Sinkhorn temperature, exp(beta) + 0.02, from its initial
+        # 0.027 to 0.1: on seeded features the sharp assignment picks among
+        # near-ties, which a bf16-sized change of the features reorders, and
+        # the pose jumps with them; the soft one averages over them
+        m32.ego_motion_head.beta.fill_(math.log(0.08))
+    fg_share, mov_share = calibrate_heads(m32, batches[0])
+    m16 = port.build_model(cfg16)
+    m16.load_state_dict(m32.state_dict())
+    log(f"nuScenes: {n_fwd} scenes, valid points "
+        f"{[int(b['point_valid'].sum()) for b in batches]} of {cfg16['capacity']['max_points']}, "
+        f"valid pillars {[int(b['pillar_valid'].sum()) for b in batches]} of "
+        f"{cfg16['capacity']['max_pillars']}; heads calibrated to FG {fg_share:.4f}, moving "
+        f"{mov_share:.4f} ({time.perf_counter() - t0:.1f} s host prep)")
+
+    def zero():
+        seg_pool.launches = seg_pool.launches_bf16 = 0
+        row_shift_blocks.launches = row_shift_blocks.launches_bf16 = 0
+        row_shift.launches = row_shift.launches_bf16 = nn.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"K1": seg_pool.launches, "K1-bf16": seg_pool.launches_bf16,
+                "K2": row_shift_blocks.launches, "K2-bf16": row_shift_blocks.launches_bf16,
+                "K3": row_shift.launches, "K3-bf16": row_shift.launches_bf16, "K4": nn.launches}
+
+    # ---- the bf16 val forward: this slice's main path ----
+    zero()
+    with torch.no_grad():
+        val16 = [m16(bt) for bt in batches]
+    val_counts = counts()
+    k1_per = cfg16["pillar_encoder"]["depth"] - 1  # the pillar encoder's pools: 2
+    want = {"K1": 0, "K1-bf16": k1_per * n_fwd, "K2": 0, "K2-bf16": 3 * n_fwd, "K3": 0,
+            "K3-bf16": 0, "K4": 0}
+    if val_counts != want:
+        fail(f"nuScenes bf16 val forward launched {val_counts}, want {want}")
+    with torch.no_grad():
+        val32 = [m32(bt) for bt in batches]
+    for i, out in enumerate(val16):
+        for key, x in out.items():
+            if torch.is_tensor(x) and x.is_floating_point() and not bool(torch.isfinite(x).all()):
+                fail(f"nuScenes bf16 val forward, scene {i}: non-finite {key}")
+    val_m = [bf16_vs_f32("nuScenes val bf16 vs float32", a, b, bt, 1.0)
+             for a, b, bt in zip(val16, val32, batches)]
+    # the same bf16 function on the CPU (its plain kernels), scene 0
+    t1 = time.perf_counter()
+    cpu16 = port.build_model(cfg16, device="cpu")
+    cpu16.load_state_dict({k: x.cpu() for k, x in m32.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu16({k: x.cpu() for k, x in batches[0].items()})
+    cpu_m = bf16_vs_f32("nuScenes val bf16 card vs CPU", val16[0], ref, batches[0], 1.0,
+                        against_f32=False)
+    log(f"nuScenes bf16 val forward, card vs CPU (the same function, summed in other orders; "
+        f"{time.perf_counter() - t1:.1f} s on the CPU): {cpu_m}")
+    from_id = float((val16[0]["ego_motion_est"][:, 1:].cpu()
+                     - torch.eye(4)).abs().amax((-1, -2)).min())
+    if from_id < 1e-4:
+        fail("nuScenes val: a bf16 ego pose of frames 1..T-1 is the identity; nothing compared")
+    log(f"nuScenes bf16 val forward: {n_fwd} forwards launched {val_counts}; against the float32 "
+        f"forward on the card (same weights and batch): {val_m}; ego poses of frames 1..10 at "
+        f"least {from_id:.4f} from the identity")
+
+    def median_ms(model, mode, reps):
+        with torch.no_grad():
+            model(batches[0], mode=mode)
+            times = []
+            for i in range(reps):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                model(batches[i % n_fwd], mode=mode)
+                end.record()
+                times.append(sync_ms(start, end))
+        return statistics.median(times), times
+
+    times = {}
+    for name, model in (("val_f32", m32), ("val_bf16", m16), ("val_bf16_2", m16),
+                        ("val_f32_2", m32)):
+        times[name] = median_ms(model, "val", 5)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        m16(batches[0])
+    peak16 = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        m32(batches[0])
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # ---- the bf16 test forward, both ICPs at 50 iterations ----
+    def test_models(iters):
+        out = []
+        for cfg in (cfg16, cfg32):
+            mdl = port.build_model(test_mode_config(copy.deepcopy(cfg), iters))
+            mdl.load_state_dict(m32.state_dict())
+            out.append(mdl)
+        return out
+
+    t16, t32 = test_models(50)
+    zero()
+    with torch.no_grad():
+        test16 = [t16(bt, mode="test") for bt in batches]
+    test_counts = counts()
+    want = {"K1": 0, "K1-bf16": k1_per * n_fwd, "K2": 0, "K2-bf16": 3 * n_fwd, "K3": 0,
+            "K3-bf16": 0, "K4": 100 * n_fwd}
+    if test_counts != want:
+        fail(f"nuScenes bf16 test forward launched {test_counts}, want {want}")
+    n_inst = []
+    for i, out in enumerate(test16):
+        for key, x in out.items():
+            if torch.is_tensor(x) and x.is_floating_point() and not bool(torch.isfinite(x).all()):
+                fail(f"nuScenes bf16 test forward, scene {i}: non-finite {key}")
+        labels = out["inst_labels_est"][0]
+        slots = torch.unique(labels[labels > 0])
+        dets = torch.cat([torch.linalg.det(out["ego_motion_est"][..., :3, :3].double()).reshape(-1),
+                          torch.linalg.det(out["inst_pose_est"][0, slots][..., :3, :3].double())
+                          .reshape(-1)])
+        if float((dets - 1).abs().max()) > 1e-4:
+            fail(f"nuScenes bf16 test forward, scene {i}: a pose is not a rotation")
+        n_inst.append(len(slots))
+    # held against float32 at 3 ICP iterations, as the default config's test
+    # path is held against the CPU: 50 iterations from starting poses 1e-2
+    # apart may settle a frame's ICP in another local minimum (the float32
+    # forward on two devices does the same), which tests the start, not bf16
+    t16_3, t32_3 = test_models(3)
+    with torch.no_grad():
+        test32 = [t32_3(bt, mode="test") for bt in batches]
+        # the float32 run's clusters injected, so that both reconstruct the
+        # same instances
+        test16_inj = [t16_3(bt, mode="test", inst_labels_override=o["inst_labels_est"])
+                      for bt, o in zip(batches, test32)]
+        agree = [pair_agreement(t16_3(bt, mode="test")["inst_labels_est"][0].cpu().numpy(),
+                                o["inst_labels_est"][0].cpu().numpy())
+                 for bt, o in zip(batches, test32)]
+    # the instance ICP starts from the TPointNet's poses and moves a few
+    # small slices far on a bf16-sized nudge (the JAX package's own
+    # bf16-vs-float32 drift does the same, tests/test_torch_precision.py)
+    test_m = [bf16_vs_f32("nuScenes test bf16 vs float32", a, b, bt, 0.99)
+              for a, b, bt in zip(test16_inj, test32, batches)]
+    log(f"nuScenes bf16 test forward (both ICPs, 50 iterations): {n_fwd} forwards launched "
+        f"{test_counts}; finite, rigid poses; instances found {n_inst}. At 3 ICP iterations "
+        f"against the float32 forward: clustering pair agreement {agree}; with the float32 "
+        f"run's labels injected: {test_m}")
+    for name, model in (("test_f32", t32), ("test_bf16", t16)):
+        times[name] = median_ms(model, "test", 3)
+    log("nuScenes forwards (B=1, CUDA events, median ms and all times): " + "; ".join(
+        f"{k} {v[0]:.3f} ({', '.join(f'{t:.3f}' for t in v[1])})" for k, v in times.items())
+        + f"; peak memory of one val forward bf16 {peak16:.3f} GiB, float32 {peak32:.3f} GiB; "
+        f"on {smi} ({time.perf_counter() - t0:.1f} s)")
+    return val_counts, {k: v[0] for k, v in times.items()}
+
+
+def nuscenes_cli_phase(port) -> None:
+    """`python -m pcaccumulation_tpu_torch.main configs/nuscene.yaml 1 1
+    --misc.mode=test --train.ckpt_backend=pickle` on the card over two
+    synthetic samples of 11 sweeps at 20 Hz written to a temporary
+    directory (the test split holds one): bf16 kernels only, one dump."""
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.synthetic import generate_sample
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
+    from pcaccumulation_tpu_torch.main import main as cli_main
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nuscene_")
+    cwd = os.getcwd()
+    try:
+        data = os.path.join(tmp, "data")
+        for i in range(2):
+            os.makedirs(os.path.join(data, f"scene_{i:04d}"))
+            np.savez_compressed(os.path.join(data, f"scene_{i:04d}", "sample_00000.npz"),
+                                **generate_sample(SEED + 100 + i, n_frames=11, freq=20.0))
+        for split, i in (("train", 0), ("val", 0), ("test", 1)):
+            with open(os.path.join(data, f"{split}_info.txt"), "w") as f:
+                f.write(f"scene_{i:04d}/sample_00000.npz\n")
+        os.chdir(tmp)
+        seg_pool.launches = seg_pool.launches_bf16 = 0
+        row_shift_blocks.launches = row_shift_blocks.launches_bf16 = 0
+        rc = cli_main(["main", os.path.join(repo, "configs", "nuscene.yaml"), "1", "1",
+                       "--misc.mode=test", "--train.ckpt_backend=pickle",
+                       "--misc.exp_name=nuscene_cli", f"--path.dataset_base={data}"])
+        torch.cuda.synchronize()
+        got = (seg_pool.launches, seg_pool.launches_bf16, row_shift_blocks.launches,
+               row_shift_blocks.launches_bf16)
+        dumps = os.listdir(os.path.join(tmp, "results", "nuscene_cli"))
+        nus = load_config(os.path.join(repo, "configs", "nuscene.yaml"))
+        k1_per = nus["pillar_encoder"]["depth"] - 1
+        if rc != 0 or got != (0, k1_per, 0, 3) or dumps != ["scene_0001"]:
+            fail(f"nuScenes CLI test mode: rc {rc}, launches (K1, K1-bf16, K2, K2-bf16) {got}, "
+                 f"dumps {dumps}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"nuScenes CLI (configs/nuscene.yaml, --misc.mode=test --train.ckpt_backend=pickle): "
+        f"one test scene dumped, K1-bf16 {k1_per}x and K2-bf16 3x, no float32 kernel "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args not in ([], ["--only", "kernels"]):
@@ -1057,12 +1570,16 @@ def main() -> None:
             f"{err:.2e} (bound 1e-5 of the segment's sum|g|), zero off the tie set, {n_tied} "
             f"tied rows, two calls equal")
     k1_rows = k1_timings(x, ids, x4, ids4, g4, k1_err, k1b_err)
+
+    # ---- 4c. the bf16 kernels of K1 and K2 (and K3) vs plain ----------------
+    bf16_rows = bf16_kernel_phase(dev, gen)
     if only_kernels:
         cfg = load_config()
         k3_phase(dev, gen)
         k4_phase(dev, gen, default_scenes(cfg, 1)[0])
         chamfer_phase(dev, gen)
-        print(json.dumps({"kernels": list(k1_rows.values())}), flush=True)
+        print(json.dumps({"kernels": list(k1_rows.values()) + list(bf16_rows.values())}),
+              flush=True)
         log("--only kernels: the build and the kernel phases passed; no path was driven")
         return
 
@@ -1184,6 +1701,10 @@ def main() -> None:
 
     # ---- 6d. the Tester and the evaluation on data/synthetic ----------------
     tester_phase(port)
+
+    # ---- 6e. the nuScenes preset in bf16: val and test forward, the CLI ------
+    nus_counts, nus_ms = nuscenes_phase(port, smi)
+    nuscenes_cli_phase(port)
 
     # ---- 7. train path: the Trainer's micro-step at full width --------------
     from pcaccumulation_tpu_torch.train.loss import fuse_loss
@@ -1391,6 +1912,9 @@ def main() -> None:
     }
     kernels["row_shift"] = k3_entry
     kernels["nn"] = k4_entry
+    kernels["seg_pool_bf16"] = dict(bf16_rows["seg_pool_bf16"], launches=nus_counts["K1-bf16"])
+    kernels["row_shift_blocks_bf16"] = dict(bf16_rows["row_shift_blocks_bf16"],
+                                            launches=nus_counts["K2-bf16"])
     for kern in kernels.values():
         log(f"{kern['name']}: {kern['ms']:.4f} ms (bound {kern['bound_ms']:.4f} ms by "
             f"{kern['bound_by']}; plain {kern['plain_ms']:.4f} ms; library "
@@ -1399,7 +1923,7 @@ def main() -> None:
     log(f"forward_ms {fwd_ms:.3f} test_forward_ms {test_ms:.3f} "
         f"train_micro_step_ms {micro_med:.3f} "
         f"train_update_ms {statistics.median(update_ms):.3f} train_peak_gib {peak_gib:.3f} "
-        f"on {smi}")
+        + " ".join(f"nuscenes_{k}_ms {v:.3f}" for k, v in nus_ms.items()) + f" on {smi}")
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,6 @@
-// Row shift with one shift per (row, channel block): kernels K2 and K3.
+// Row shift with one shift per (row, channel block): kernels K2 and K3, on
+// float32 (`row_shift_blocks_forward`) or bfloat16
+// (`row_shift_blocks_forward_bf16`) images.
 //
 // Replaces the TPU kernels pcaccumulation_tpu/ops/bilinear.py
 // _row_shift_blocks_pallas (K2, wrapped by _make_row_shift_blocks and
@@ -30,7 +32,19 @@
 // not a multiple of 4 or a pointer is not 16-byte aligned, the same kernel
 // runs one channel per thread (4-byte copies). Forward, gradient (-shifts)
 // and K3 (n_blocks = 1) are this one kernel.
+//
+// bfloat16. As the TPU kernel does (its f32 scratch slab, its f32 f), each
+// tap is widened to float32 (exactly), the lerp runs in float32 with the
+// same separately rounded products and sum, and the output is rounded to
+// bf16 once, at the store. The slab holds the source's bf16 values: their
+// float32 values are exact, so it is the f32 slab of the TPU kernel at
+// half the bytes (up to 768 positions of 32 channels in 48 KB). A thread
+// moves 16 bytes, 8 channels, where C % 8 == 0 and the pointers are 16-byte
+// aligned; else one channel, copied into the slab by a plain load and store
+// (cp.async moves 4, 8 or 16 bytes, not 2). The bound halves with the
+// bytes: [288, 288, 352] bf16 is 117 MB in and out, 35 us at 3.35 TB/s.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -38,59 +52,62 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int CHANNEL_TILE = 32;          // channels per block
-constexpr int SMEM_FLOATS = 48 * 1024 / 4;  // a block's slab: at most 48 KB
+constexpr int CHANNEL_TILE = 32;      // channels per block
+constexpr int SMEM_BYTES = 48 * 1024;  // a block's slab: at most 48 KB
 
-template <int VEC>
-struct Vec;
-template <>
-struct Vec<4> {
-  using T = float4;
-};
-template <>
-struct Vec<1> {
-  using T = float;
+// VEC consecutive values of element type E: the unit a thread copies,
+// loads and stores (16 bytes where VEC > 1).
+template <class E, int VEC>
+struct alignas(sizeof(E) * VEC) Pack {
+  E v[VEC];
 };
 
-template <int VEC>
-__device__ __forceinline__ void copy_async(float* smem, const float* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  if constexpr (VEC == 4) {
+// Copy one Pack from device memory into the slab: cp.async where it moves
+// 4, 8 or 16 bytes, else a plain load and store.
+template <class E, int VEC>
+__device__ __forceinline__ void copy_to_slab(E* smem, const E* gmem) {
+  constexpr int BYTES = sizeof(E) * VEC;
+  if constexpr (BYTES == 16) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-  } else {
+  } else if constexpr (BYTES == 4) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+  } else {
+    *reinterpret_cast<Pack<E, VEC>*>(smem) = *reinterpret_cast<const Pack<E, VEC>*>(gmem);
   }
 }
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <class E>
+__device__ __forceinline__ E from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// (1 - f) * v0 + f * v1 with the products and the sum rounded separately
+// (no fused multiply-add), as the plain version rounds them.
 __device__ __forceinline__ float lerp(float v0, float v1, float g, float f) {
   return __fadd_rn(__fmul_rn(v0, g), __fmul_rn(v1, f));
 }
 
-__device__ __forceinline__ float4 lerp(float4 v0, float4 v1, float g, float f) {
-  return make_float4(lerp(v0.x, v1.x, g, f), lerp(v0.y, v1.y, g, f), lerp(v0.z, v1.z, g, f),
-                     lerp(v0.w, v1.w, g, f));
-}
-
-template <int VEC>
-__device__ __forceinline__ typename Vec<VEC>::T zero();
-template <>
-__device__ __forceinline__ float4 zero<4>() {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-template <>
-__device__ __forceinline__ float zero<1>() {
-  return 0.0f;
-}
-
 // grid (rows * n_blocks, channel tiles, position tiles); dynamic shared
-// memory (j_tile + 1) * min(c_tile, C) floats
-template <int VEC>
+// memory (j_tile + 1) * min(c_tile, C) elements of E
+template <class E, int VEC>
 __global__ void __launch_bounds__(THREADS)
-    row_shift_kernel(const float* __restrict__ img, const float* __restrict__ shifts,
-                     float* __restrict__ out, int w, int ctot, int n_blocks, float sign,
-                     int c_tile, int j_tile) {
-  using V = typename Vec<VEC>::T;
-  extern __shared__ __align__(16) float slab[];
+    row_shift_kernel(const E* __restrict__ img, const float* __restrict__ shifts,
+                     E* __restrict__ out, int w, int ctot, int n_blocks, float sign, int c_tile,
+                     int j_tile) {
+  using P = Pack<E, VEC>;
+  extern __shared__ __align__(16) unsigned char slab_bytes[];
+  E* slab = reinterpret_cast<E*>(slab_bytes);
   const int rb = blockIdx.x;  // r * n_blocks + b
   const int r = rb / n_blocks;
   const int b = rb - r * n_blocks;
@@ -109,17 +126,18 @@ __global__ void __launch_bounds__(THREADS)
   const int lo = max(base, 0);
   const int hi = min(base + jn + 1, w);
 
-  const int lanes = cw / VEC;  // vectors per position
+  const int lanes = cw / VEC;  // packs per position
   const int lane = threadIdx.x % lanes;
   const int row = threadIdx.x / lanes;
   const int step = THREADS / lanes;  // positions per pass of the block
   const bool active = row < step;    // threads past the last whole position idle
   const size_t off = (size_t)r * w * ctot + (size_t)(b * c + c0 + lane * VEC);
-  const float* src = img + off;
-  float* dst = out + off;
-  float* sl = slab + lane * VEC;
+  const E* src = img + off;
+  E* dst = out + off;
+  E* sl = slab + lane * VEC;
   if (active) {
-    for (int s = lo + row; s < hi; s += step) copy_async<VEC>(sl + (s - base) * cw, src + s * ctot);
+    for (int s = lo + row; s < hi; s += step)
+      copy_to_slab<E, VEC>(sl + (s - base) * cw, src + s * ctot);
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
@@ -127,11 +145,48 @@ __global__ void __launch_bounds__(THREADS)
 
   for (int i = row; i < jn; i += step) {
     const int s0 = base + i;
-    const V v0 = (s0 >= 0 && s0 < w) ? *reinterpret_cast<const V*>(sl + i * cw) : zero<VEC>();
-    const V v1 =
-        (s0 + 1 >= 0 && s0 + 1 < w) ? *reinterpret_cast<const V*>(sl + (i + 1) * cw) : zero<VEC>();
-    *reinterpret_cast<V*>(dst + (j0 + i) * ctot) = lerp(v0, v1, g, fr);
+    const bool in0 = s0 >= 0 && s0 < w, in1 = s0 + 1 >= 0 && s0 + 1 < w;
+    P v0, v1, o;
+    if (in0) v0 = *reinterpret_cast<const P*>(sl + i * cw);
+    if (in1) v1 = *reinterpret_cast<const P*>(sl + (i + 1) * cw);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      o.v[j] = from_float<E>(lerp(in0 ? to_float(v0.v[j]) : 0.0f,
+                                  in1 ? to_float(v1.v[j]) : 0.0f, g, fr));
+    *reinterpret_cast<P*>(dst + (j0 + i) * ctot) = o;
   }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// One launch over img [rows, w, ctot] of element type E, VEC = the channels
+// of a 16-byte vector (4 f32, 8 bf16) where C allows and the pointers are
+// aligned, else 1.
+template <class E>
+int shift(const E* img, const float* shifts, E* out, long long rows, int w, int ctot,
+          int n_blocks, float sign, void* stream) {
+  constexpr int VEC = 16 / sizeof(E);
+  if (rows <= 0 || w <= 0 || ctot <= 0) return 0;
+  if (n_blocks <= 0 || ctot % n_blocks || (long long)w * ctot >= (1LL << 31) ||
+      rows * n_blocks >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  const int c = ctot / n_blocks;
+  const bool vec = c % VEC == 0 && aligned16(img) && aligned16(out);
+  const int c_tile = c < CHANNEL_TILE ? c : CHANNEL_TILE;  // a multiple of VEC on the vector path
+  const int j_tile = min(w, SMEM_BYTES / (int)sizeof(E) / c_tile - 1);
+  const dim3 grid((unsigned)(rows * n_blocks), (unsigned)((c + c_tile - 1) / c_tile),
+                  (unsigned)((w + j_tile - 1) / j_tile));
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(j_tile + 1) * c_tile * sizeof(E);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    row_shift_kernel<E, VEC><<<grid, THREADS, smem, s>>>(img, shifts, out, w, ctot, n_blocks,
+                                                         sign, c_tile, j_tile);
+  } else {
+    row_shift_kernel<E, 1><<<grid, THREADS, smem, s>>>(img, shifts, out, w, ctot, n_blocks,
+                                                       sign, c_tile, j_tile);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -142,26 +197,15 @@ __global__ void __launch_bounds__(THREADS)
 extern "C" int row_shift_blocks_forward(const float* img, const float* shifts, float* out,
                                         long long rows, int w, int ctot, int n_blocks,
                                         float sign, void* stream) {
-  if (rows <= 0 || w <= 0 || ctot <= 0) return 0;
-  if (n_blocks <= 0 || ctot % n_blocks || (long long)w * ctot >= (1LL << 31) ||
-      rows * n_blocks >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const int c = ctot / n_blocks;
-  const bool vec = c % 4 == 0 && reinterpret_cast<uintptr_t>(img) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  const int c_tile = c < CHANNEL_TILE ? c : CHANNEL_TILE;  // a multiple of 4 on the vector path
-  const int j_tile = min(w, SMEM_FLOATS / c_tile - 1);
-  const dim3 grid((unsigned)(rows * n_blocks), (unsigned)((c + c_tile - 1) / c_tile),
-                  (unsigned)((w + j_tile - 1) / j_tile));
-  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(j_tile + 1) * c_tile * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec) {
-    row_shift_kernel<4><<<grid, THREADS, smem, s>>>(img, shifts, out, w, ctot, n_blocks, sign,
-                                                    c_tile, j_tile);
-  } else {
-    row_shift_kernel<1><<<grid, THREADS, smem, s>>>(img, shifts, out, w, ctot, n_blocks, sign,
-                                                    c_tile, j_tile);
-  }
-  return (int)cudaGetLastError();
+  return shift<float>(img, shifts, out, rows, w, ctot, n_blocks, sign, stream);
+}
+
+// The same on bf16 images (img, out bf16; shifts f32): the lerp in float32,
+// rounded to bf16 once at the store.
+extern "C" int row_shift_blocks_forward_bf16(const void* img, const float* shifts, void* out,
+                                             long long rows, int w, int ctot, int n_blocks,
+                                             float sign, void* stream) {
+  return shift<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(img), shifts,
+                              static_cast<__nv_bfloat16*>(out), rows, w, ctot, n_blocks, sign,
+                              stream);
 }

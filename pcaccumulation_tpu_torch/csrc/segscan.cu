@@ -1,5 +1,7 @@
 // Segment reduce-broadcast over SORTED segment ids (kernel K1) and the
-// gradient of its max, each as one C entry point of two launches.
+// gradient of its max, each as one C entry point of two launches. The
+// forward takes float32 (`segpool_forward`) or bfloat16
+// (`segpool_forward_bf16`) rows; the gradient float32.
 //
 // Replaces the TPU kernels of pcaccumulation_tpu/kernels/segscan.py:
 //   _seg_pool_impl (_scan_block_kernel + _total_block_kernel): for
@@ -11,7 +13,8 @@
 //     forward's sum of g, the same entry point).
 //
 // What bounds it on an H100: bytes. The forward must read x and ids once
-// and write out once (x [90000, 32] f32: 23 MB, 7 us at 3.35 TB/s); the
+// and write out once (x [90000, 32] f32: 23 MB, 7 us at 3.35 TB/s; x
+// [120000, 32] bf16: 15.8 MB, 4.7 us); the
 // gradient reads x, y, g and ids once and writes once ([360000, 32]: 186 MB,
 // 56 us). The arithmetic is one compare or add per element and payload.
 //
@@ -42,6 +45,17 @@
 // tiles each read 157 * 32 floats, 3.2 MB in all (the gradient: 157 * 64
 // floats each, 6.3 MB).
 //
+// bfloat16. As the TPU kernel does (its f32 scratch and its f32 carry), a
+// bf16 row is widened to float32 where it is loaded, every reduction and
+// every partial stays float32, and the result is rounded to bf16 once, at
+// the store (round to nearest even): a sum is not rounded per partial. The
+// payload per thread is the f32 kernel's: 4 columns, here one 8-byte load
+// of 4 bf16, so that the 8 lanes of a row group cover 32 columns, the
+// pillar encoder's width, with every lane busy (a 16-byte load of 8 bf16
+// would leave half the lanes of a row idle at C = 32 and double each
+// thread's registers). Where C % 4 != 0 or a pointer is not 8-byte aligned,
+// one column per thread.
+//
 // Fixed order of combination. Every order of addition here is a function
 // of the ids alone: the in-thread scan runs over the rows in order, the
 // carry over the groups in order, a crossing run's partials in an order
@@ -52,6 +66,7 @@
 // order); sum and the gradient differ from the plain version only by the
 // order of their additions.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -68,11 +83,11 @@ constexpr int TILE = GROUPS * K;          // rows of a tile; the wrapper's TILE_
 constexpr int WHOLE = 1, LINK_L = 2, LINK_R = 4;
 
 struct Args {
-  const float* x;
+  const void* x;   // float or __nv_bfloat16 (the forward's element type)
   const float* y;  // gradient only: the forward's output
   const float* g;  // gradient only: the cotangent
   const int* ids;
-  float* out;
+  void* out;       // x's element type
   float* first;  // [n_tiles, P, c]
   float* last;   // [n_tiles, P, c]
   int* flags;    // [n_tiles]
@@ -106,8 +121,41 @@ __device__ __forceinline__ void store_vec(float* p, const float* src) {
   }
 }
 
-// The forward: the payload is VEC columns of x, reduced by max or sum.
-template <int VEC, bool IS_MAX>
+// VEC bf16 values (VEC = 4: one 8-byte load) widened to float32, exactly.
+template <int VEC>
+__device__ __forceinline__ void load_vec(float* dst, const __nv_bfloat16* p) {
+  if constexpr (VEC == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+    dst[0] = lo.x;
+    dst[1] = lo.y;
+    dst[2] = hi.x;
+    dst[3] = hi.y;
+  } else {
+    dst[0] = __bfloat162float(*p);
+  }
+}
+
+// VEC float32 values rounded once to bf16 (to nearest even) and stored.
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* src) {
+  if constexpr (VEC == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(src[0], src[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(src[2], src[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&lo);
+    q.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(p) = q;
+  } else {
+    *p = __float2bfloat16_rn(src[0]);
+  }
+}
+
+// The forward: the payload is VEC columns of x (element type E, float or
+// __nv_bfloat16), widened to float32 and reduced by max or sum; the store
+// rounds to E once.
+template <int VEC, bool IS_MAX, class E>
 struct Pool {
   static constexpr int P = 1;
   static constexpr int V = VEC;
@@ -128,12 +176,12 @@ struct Pool {
   }
   __device__ static T load(const Args& a, int row, int, int col, unsigned&, int) {
     T r;
-    load_vec<VEC>(r.v, a.x + row * a.c + col);
+    load_vec<VEC>(r.v, static_cast<const E*>(a.x) + row * a.c + col);
     return r;
   }
   __device__ static unsigned ties(const Args&, int, int, int, int) { return 0u; }
   __device__ static void store(const Args& a, int row, int col, const T& tot, unsigned, int) {
-    store_vec<VEC>(a.out + row * a.c + col, tot.v);
+    store_vec<VEC>(static_cast<E*>(a.out) + row * a.c + col, tot.v);
   }
 };
 
@@ -163,7 +211,7 @@ struct MaxGrad {
   }
   __device__ static unsigned ties(const Args& a, int row, int yrow, int col, int k) {
     float xv[VEC], yv[VEC];
-    load_vec<VEC>(xv, a.x + row * a.c + col);
+    load_vec<VEC>(xv, static_cast<const float*>(a.x) + row * a.c + col);
     load_vec<VEC>(yv, a.y + yrow * a.c + col);
     unsigned bits = 0u;
 #pragma unroll
@@ -184,7 +232,7 @@ struct MaxGrad {
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
       o[j] = (bits >> (k * VEC + j)) & 1u ? __fdiv_rn(tot.v[j], fmaxf(tot.v[VEC + j], 1.0f)) : 0.0f;
-    store_vec<VEC>(a.out + row * a.c + col, o);
+    store_vec<VEC>(static_cast<float*>(a.out) + row * a.c + col, o);
   }
 };
 
@@ -480,7 +528,9 @@ int launch(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+bool aligned(const void* p, unsigned bytes = 16) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
 
 // Carve the scratch (first, last, flags) and check the sizes; 0 or an error.
 int prepare(Args& a, float* scratch, long long scratch_floats, int payload) {
@@ -495,6 +545,21 @@ int prepare(Args& a, float* scratch, long long scratch_floats, int payload) {
   return 0;
 }
 
+// The forward on rows of element type E: 4 columns a thread where C % 4 ==
+// 0 and x and out are aligned to 4 elements, else one.
+template <class E>
+int forward(const void* x, const int* ids, void* out, float* scratch, long long scratch_floats,
+            int n, int c, int op, void* stream) {
+  if (n <= 0 || c <= 0) return 0;
+  Args a{x, nullptr, nullptr, ids, out, nullptr, nullptr, nullptr, n, c, 0};
+  const int rc = prepare(a, scratch, scratch_floats, 1);
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = c % 4 == 0 && aligned(x, 4 * sizeof(E)) && aligned(out, 4 * sizeof(E));
+  if (op == 0) return vec ? launch<Pool<4, true, E>>(a, s) : launch<Pool<1, true, E>>(a, s);
+  return vec ? launch<Pool<4, false, E>>(a, s) : launch<Pool<1, false, E>>(a, s);
+}
+
 }  // namespace
 
 // The forward. x [n, c] f32 contiguous, ids [n] int32 non-decreasing, out
@@ -503,14 +568,15 @@ int prepare(Args& a, float* scratch, long long scratch_floats, int payload) {
 // launches; returns the first CUDA error, or 0.
 extern "C" int segpool_forward(const float* x, const int* ids, float* out, float* scratch,
                                long long scratch_floats, int n, int c, int op, void* stream) {
-  if (n <= 0 || c <= 0) return 0;
-  Args a{x, nullptr, nullptr, ids, out, nullptr, nullptr, nullptr, n, c, 0};
-  const int rc = prepare(a, scratch, scratch_floats, 1);
-  if (rc) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = c % 4 == 0 && aligned(x) && aligned(out);
-  if (op == 0) return vec ? launch<Pool<4, true>>(a, s) : launch<Pool<1, true>>(a, s);
-  return vec ? launch<Pool<4, false>>(a, s) : launch<Pool<1, false>>(a, s);
+  return forward<float>(x, ids, out, scratch, scratch_floats, n, c, op, stream);
+}
+
+// The same on bf16 rows: x and out [n, c] bf16 contiguous, the scratch
+// float32 as above; reduced in float32 and rounded once at the store.
+extern "C" int segpool_forward_bf16(const void* x, const int* ids, void* out, float* scratch,
+                                    long long scratch_floats, int n, int c, int op,
+                                    void* stream) {
+  return forward<__nv_bfloat16>(x, ids, out, scratch, scratch_floats, n, c, op, stream);
 }
 
 // The gradient of the max forward: x, y (its output) and g (the cotangent

@@ -15,11 +15,21 @@ tensor it runs `row_shift_blocks_plain`.
 `warp_bev_batch`. On the card it launches the same kernel at n_blocks=1,
 counted on its own (`row_shift.launches`).
 
+img may be float32 or bfloat16. A bf16 image goes to the bf16 kernel
+(`row_shift_blocks_forward_bf16`, the TPU kernel's bf16 case, the one the
+shear warp runs under `precision.compute_dtype: bfloat16`): the taps
+widened to float32, the lerp in float32 at a float32 f, the output rounded
+to bf16 once at the store; the plain version computes in float32 and casts
+once. It is never cast to float32 for the float32 kernel. Its launches
+count on `row_shift_blocks.launches_bf16` (`row_shift.launches_bf16` for
+K3), the float32 kernel's on `.launches`.
+
 Their gradient (`RowShift`) is the JAX package's custom VJP
 (`ops/bilinear.py::_make_row_shift_blocks`, `_row_shift_sample`): the same
 kernel at -shifts for the image, zero for the shifts. That is not the exact
 transpose of the lerp at the row ends, and the port follows JAX, not
-autograd.
+autograd. The gradient takes float32 only: on a bf16 cotangent it raises
+(it comes with the bf16 training slice).
 """
 
 from __future__ import annotations
@@ -35,7 +45,10 @@ def row_shift_blocks_plain(img: torch.Tensor, ki: torch.Tensor, f: torch.Tensor,
                            n_blocks: int) -> torch.Tensor:
     """Plain PyTorch version: per channel block, gather the shifted window
     of a zero-padded row and lerp its two taps. ki int [R, n_blocks] in
-    [-W, W], f float [R, n_blocks]."""
+    [-W, W], f float [R, n_blocks]. A bf16 image is shifted in float32
+    (float32 f) and the result cast to bf16 once."""
+    if img.dtype == torch.bfloat16:
+        return row_shift_blocks_plain(img.float(), ki, f.float(), n_blocks).to(img.dtype)
     r, w, ctot = img.shape
     c = ctot // n_blocks
     padded = F.pad(img, (0, 0, w, w + 1))  # [R, 3W+1, ctot]
@@ -57,36 +70,47 @@ def _split(shifts: torch.Tensor, w: int) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _shift(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int,
            sign: float = 1.0) -> tuple[torch.Tensor, bool]:
-    """The shift at sign * shifts: the kernel on a CUDA tensor (one launch,
-    which splits the shifts itself), the plain version on a CPU tensor.
-    Returns (out, launched)."""
+    """The shift at sign * shifts: the kernel of img's dtype on a CUDA
+    tensor (one launch, which splits the shifts itself), the plain version
+    on a CPU tensor. Returns (out, launched)."""
     r, w, ctot = img.shape
     if not img.is_cuda:
         return row_shift_blocks_plain(img, *_split(sign * shifts, w), n_blocks), False
-    if img.dtype != torch.float32:
-        raise TypeError(f"row_shift_blocks kernel takes float32, got {img.dtype}")
+    if img.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"row_shift_blocks kernel takes float32 or bfloat16, got {img.dtype}")
     img = img.contiguous()
     shifts = shifts.to(torch.float32).contiguous()
     out = torch.empty_like(img)
     lib = build.load_library("row_shift")
-    rc = lib.row_shift_blocks_forward(img.data_ptr(), shifts.data_ptr(), out.data_ptr(), r, w,
-                                      ctot, n_blocks, sign, build.stream(img))
+    entry = (lib.row_shift_blocks_forward_bf16 if img.dtype == torch.bfloat16
+             else lib.row_shift_blocks_forward)
+    rc = entry(img.data_ptr(), shifts.data_ptr(), out.data_ptr(), r, w, ctot, n_blocks, sign,
+               build.stream(img))
     build.check(rc, "row_shift")
     return out, True
+
+
+def _float32_only(g: torch.Tensor) -> None:
+    if g.dtype == torch.bfloat16:
+        raise NotImplementedError("the gradient of the row shift in bfloat16 is not yet ported "
+                                  "(the bf16 training slice)")
 
 
 def row_shift_blocks_backward(g: torch.Tensor, shifts: torch.Tensor,
                               n_blocks: int) -> torch.Tensor:
     """Gradient of `row_shift_blocks` for the image, given the cotangent g
     of its output: the same shift at -shifts (one K2 launch on a CUDA
-    tensor, the plain version on a CPU tensor)."""
+    tensor, the plain version on a CPU tensor). float32 only."""
+    _float32_only(g)
     out, launched = _shift(g, shifts, n_blocks, -1.0)
     row_shift_blocks_backward.launches += launched
     return out
 
 
 def row_shift_backward(g: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """Gradient of `row_shift` for the image: the shift at -shifts [R, 1]."""
+    """Gradient of `row_shift` for the image: the shift at -shifts [R, 1].
+    float32 only."""
+    _float32_only(g)
     out, launched = _shift(g, shifts, 1, -1.0)
     row_shift_backward.launches += launched
     return out
@@ -94,13 +118,13 @@ def row_shift_backward(g: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
 
 class RowShift(torch.autograd.Function):
     """A row shift with the JAX package's gradient. `counted` is the public
-    wrapper whose launch count the forward adds to; `backward_fn(g, shifts)`
+    wrapper whose launch counts the forward adds to; `backward_fn(g, shifts)`
     is the gradient wrapper (with its own count)."""
 
     @staticmethod
     def forward(ctx, img, shifts, n_blocks, counted, backward_fn):
         out, launched = _shift(img, shifts, n_blocks)
-        counted.launches += launched
+        _count(counted, img, launched)
         ctx.backward_fn = backward_fn
         ctx.save_for_backward(shifts)
         return out
@@ -122,23 +146,33 @@ def _check(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int, what: str) ->
         raise ValueError(f"{what}: img on {dev}, shifts on {shifts.device}")
 
 
+def _count(counted, img: torch.Tensor, launched: bool) -> None:
+    """Add a launch to the count of the kernel of img's dtype."""
+    if img.dtype == torch.bfloat16:
+        counted.launches_bf16 += launched
+    else:
+        counted.launches += launched
+
+
 def _apply(img, shifts, n_blocks, counted, backward_fn) -> torch.Tensor:
     """Through `RowShift` where a gradient is wanted; else the shift alone
     (no autograd node to build)."""
     if torch.is_grad_enabled() and (img.requires_grad or shifts.requires_grad):
         return RowShift.apply(img, shifts, n_blocks, counted, backward_fn)
     out, launched = _shift(img, shifts, n_blocks)
-    counted.launches += launched
+    _count(counted, img, launched)
     return out
 
 
 def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
-    """img [R, W, n_blocks*C] float32; shifts [R, n_blocks] float32.
+    """img [R, W, n_blocks*C] float32 or bfloat16; shifts [R, n_blocks]
+    float32.
 
     The shift splits into k = floor(s), clipped to [-W, W] (|rotation| <=
     90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
     a CUDA tensor goes to the kernel or raises. The kernel rounds as the
-    plain version does. Differentiable in img through `RowShift`.
+    plain version does (a bf16 output is the float32 result rounded once).
+    Differentiable in a float32 img through `RowShift`.
     """
     _check(img, shifts, n_blocks, "row_shift_blocks")
     return _apply(img, shifts, n_blocks, row_shift_blocks,
@@ -146,7 +180,7 @@ def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> 
 
 
 def row_shift(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """img [R, W, C] float32; shifts [R] float32: out[r, j] = img[r, j + s_r]
+    """img [R, W, C] float32 or bfloat16; shifts [R] float32: out[r, j] = img[r, j + s_r]
     with linear interpolation, zeros outside the row (`row_shift_blocks`
     with one block; K3's own launch count)."""
     shifts = shifts[:, None]
@@ -154,7 +188,9 @@ def row_shift(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return _apply(img, shifts, 1, row_shift, row_shift_backward)
 
 
-row_shift_blocks.launches = 0  # forward kernel launches (one per call that reached the card)
+row_shift_blocks.launches = 0  # float32 forward launches (one per call that reached the card)
+row_shift_blocks.launches_bf16 = 0  # bf16 forward launches
 row_shift_blocks_backward.launches = 0  # gradient kernel launches
-row_shift.launches = 0  # K3: forward launches at one shift per row
+row_shift.launches = 0  # K3: float32 forward launches at one shift per row
+row_shift.launches_bf16 = 0
 row_shift_backward.launches = 0

@@ -11,6 +11,14 @@ partials of the runs that cross a tile edge and then each tile reduced and
 written once, with no [N, C] table and no atomics, so that two calls give
 the same bits; on a CPU tensor it runs `seg_pool_plain`.
 
+x may be float32 or bfloat16. A bf16 x goes to the bf16 kernel
+(`segpool_forward_bf16`, the TPU kernel's bf16 case, the one the pillar
+encoder runs under `precision.compute_dtype: bfloat16`): rows widened to
+float32 where they are loaded, reduced in float32 and rounded to bf16 once
+at the store; the plain version computes in float32 and casts once. It is
+never cast to float32 for the float32 kernel. Its launches count on
+`seg_pool.launches_bf16`, the float32 kernel's on `seg_pool.launches`.
+
 Its gradient (`SegPool`, the JAX package's `_seg_pool_bwd`) is one fused
 kernel of the same two-launch shape, `segpool_backward_max`: it reads x, y
 and g once, sums g and the tie mask (x == y) over each segment, and writes
@@ -29,7 +37,10 @@ from pcaccumulation_tpu_torch.kernels import build
 
 def seg_pool_plain(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch.Tensor:
     """Plain PyTorch version: reduce each run of equal ids into a table
-    indexed by run number (`scatter_reduce`), then gather it back."""
+    indexed by run number (`scatter_reduce`), then gather it back. A bf16
+    x is reduced in float32 and the result cast to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return seg_pool_plain(x.float(), ids, op).to(x.dtype)
     n = ids.shape[0]
     new_run = torch.ones(n, dtype=torch.bool, device=ids.device)
     new_run[1:] = ids[1:] != ids[:-1]
@@ -52,10 +63,11 @@ def _scratch(x: torch.Tensor, payload: int) -> torch.Tensor:
     return torch.empty(n_tiles * (2 * payload * c + 1), dtype=torch.float32, device=x.device)
 
 
-def _check_kernel_inputs(ids: torch.Tensor, *tensors: torch.Tensor) -> None:
+def _check_kernel_inputs(ids: torch.Tensor, *tensors: torch.Tensor,
+                         dtypes=(torch.float32,)) -> None:
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"seg_pool kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"seg_pool kernel takes {', '.join(map(str, dtypes))}, got {t.dtype}")
     if ids.dtype != torch.int32:
         raise TypeError(f"seg_pool kernel takes int32 ids, got {ids.dtype}")
     n, c = tensors[0].shape
@@ -64,16 +76,18 @@ def _check_kernel_inputs(ids: torch.Tensor, *tensors: torch.Tensor) -> None:
 
 
 def _pool(x: torch.Tensor, ids: torch.Tensor, op: str) -> tuple[torch.Tensor, bool]:
-    """The kernel on a CUDA tensor (one C call), the plain version on a CPU
-    tensor. Returns (out, launched)."""
+    """The kernel of x's dtype on a CUDA tensor (one C call), the plain
+    version on a CPU tensor. Returns (out, launched)."""
     if x.device.type == "cpu":
         return seg_pool_plain(x, ids, op), False
     x, ids = x.contiguous(), ids.contiguous()
-    _check_kernel_inputs(ids, x)
+    _check_kernel_inputs(ids, x, dtypes=(torch.float32, torch.bfloat16))
     n, c = x.shape
-    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, c), dtype=x.dtype, device=x.device)
     scratch = _scratch(x, 1)
-    rc = build.load_library("segscan").segpool_forward(
+    lib = build.load_library("segscan")
+    entry = lib.segpool_forward_bf16 if x.dtype == torch.bfloat16 else lib.segpool_forward
+    rc = entry(
         x.data_ptr(), ids.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c,
         0 if op == "max" else 1, build.stream(x))
     build.check(rc, "segscan")
@@ -115,6 +129,9 @@ def seg_pool_backward(x: torch.Tensor, ids: torch.Tensor, y: torch.Tensor,
     sum. One C call on a CUDA tensor (the fused gradient kernel for max, the
     forward kernel's sum for sum); the plain version on a CPU tensor.
     """
+    if torch.bfloat16 in (x.dtype, g.dtype):
+        raise NotImplementedError(
+            "the gradient of seg_pool in bfloat16 is not yet ported (the bf16 training slice)")
     if x.device.type == "cpu":
         return seg_pool_backward_plain(x, ids, y, g, op)
     out = _pool(g, ids, "sum")[0] if op == "sum" else _backward_max(x, ids, y, g)
@@ -129,7 +146,10 @@ class SegPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ids, op):
         y, launched = _pool(x, ids, op)
-        seg_pool.launches += launched
+        if x.dtype == torch.bfloat16:
+            seg_pool.launches_bf16 += launched
+        else:
+            seg_pool.launches += launched
         ctx.op = op
         ctx.save_for_backward(x, ids, y)
         return y
@@ -142,12 +162,14 @@ class SegPool(torch.autograd.Function):
 
 
 def seg_pool(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch.Tensor:
-    """x [N, C] float32, ids [N] int32 non-decreasing -> [N, C].
+    """x [N, C] float32 or bfloat16, ids [N] int32 non-decreasing -> [N, C]
+    in x's dtype.
 
     A CPU tensor goes to the plain version (after a check that the ids are
-    sorted); a CUDA tensor goes to the kernel or raises. Max is exact;
-    sum adds in another order than the plain version (float32 rounding,
-    relative 1e-6 per term). Differentiable in x through `SegPool`.
+    sorted); a CUDA tensor goes to the kernel of its dtype or raises. Max is
+    exact; sum adds in another order than the plain version (float32
+    rounding, relative 1e-6 per term; a bf16 sum is rounded once at the
+    end). Differentiable in a float32 x through `SegPool`.
     """
     if op not in ("max", "sum"):
         raise ValueError(f"op must be 'max' or 'sum', got {op!r}")
@@ -162,5 +184,6 @@ def seg_pool(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch.Tenso
     return SegPool.apply(x, ids, op)
 
 
-seg_pool.launches = 0  # forward kernel launches (one per call that reached the card)
+seg_pool.launches = 0  # float32 forward kernel launches (one per call that reached the card)
+seg_pool.launches_bf16 = 0  # bf16 forward kernel launches
 seg_pool_backward.launches = 0  # gradient kernel launches (one per backward on the card)

@@ -1,6 +1,20 @@
 """Shared building blocks (the port of the JAX package's `models/layers.py`,
 plain forms). Module and parameter names follow the reference PyTorch
-model's state_dict, so its checkpoints load as they are."""
+model's state_dict, so its checkpoints load as they are.
+
+Compute dtype. A module built with `compute_dtype=torch.bfloat16` computes
+as the flax module with `dtype=jnp.bfloat16` does: its parameters stay
+float32 and are cast at use, with the input, to the compute dtype (flax's
+`promote_dtype`), and its output is in the compute dtype. As in flax, a
+product or convolution is rounded to the compute dtype before its bias is
+added in that dtype (a bias fused into the product would round once, and
+differ from the JAX package in ~30 % of the outputs by an ulp). A BatchNorm
+reduces its statistics and normalises in float32 and rounds its output to
+the compute dtype once (flax's `BatchNorm(dtype=...)`). `SegHead2D`
+returns its input's dtype unless built with `keep_compute_dtype=True`. No
+autocast: the casts land where the JAX package's land. `compute_dtype=None`
+is the float32 model.
+"""
 
 from __future__ import annotations
 
@@ -8,14 +22,81 @@ from typing import Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 
-def mlp(in_features: int, features: Sequence[int], final_act: bool = False) -> nn.Sequential:
+def _apply_cast(op, cd: torch.dtype, x: torch.Tensor, weight: torch.Tensor, bias):
+    """op(x, weight) in the compute dtype cd, then + bias in cd."""
+    out = op(x.to(cd), weight.to(cd))
+    return out if bias is None else out + bias.to(cd).reshape((-1,) + (1,) * (out.dim() - 2))
+
+
+class Linear(nn.Linear):
+    """nn.Linear that computes in `compute_dtype` where it is set."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 compute_dtype: torch.dtype | None = None):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        out = F.linear(x.to(self.compute_dtype), self.weight.to(self.compute_dtype))
+        return out if self.bias is None else out + self.bias.to(self.compute_dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that computes in `compute_dtype` where it is set."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return _apply_cast(lambda a, w: self._conv_forward(a, w, None), self.compute_dtype, x,
+                           self.weight, self.bias)
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d that computes in `compute_dtype` where it is set."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return _apply_cast(lambda a, w: self._conv_forward(a, w, None), self.compute_dtype, x,
+                           self.weight, self.bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d that computes in `compute_dtype` where it is set."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kw):
+        super().__init__(*args, **kw)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return _apply_cast(
+            lambda a, w: F.conv_transpose2d(a, w, None, self.stride, self.padding,
+                                            self.output_padding, self.groups, self.dilation),
+            self.compute_dtype, x, self.weight, self.bias)
+
+
+def mlp(in_features: int, features: Sequence[int], final_act: bool = False,
+        compute_dtype: torch.dtype | None = None) -> nn.Sequential:
     """Linear stack with ReLU between layers (and after the last if
     final_act); the Linears sit at Sequential indices 0, 2, 4, ..."""
     layers: list[nn.Module] = []
     for i, f in enumerate(features):
-        layers.append(nn.Linear(in_features, f))
+        layers.append(Linear(in_features, f, compute_dtype=compute_dtype))
         if i + 1 < len(features) or final_act:
             layers.append(nn.ReLU())
         in_features = f
@@ -27,13 +108,14 @@ class ResnetBlockFC(nn.Module):
     zero-initialised second layer and a bias-free linear shortcut when the
     width changes."""
 
-    def __init__(self, size_in: int, size_out: int, size_h: int | None = None):
+    def __init__(self, size_in: int, size_out: int, size_h: int | None = None,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         size_h = size_h or min(size_in, size_out)
-        self.fc_0 = nn.Linear(size_in, size_h)
-        self.fc_1 = nn.Linear(size_h, size_out)
+        self.fc_0 = Linear(size_in, size_h, compute_dtype=compute_dtype)
+        self.fc_1 = Linear(size_h, size_out, compute_dtype=compute_dtype)
         nn.init.zeros_(self.fc_1.weight)
-        self.shortcut = (nn.Linear(size_in, size_out, bias=False)
+        self.shortcut = (Linear(size_in, size_out, bias=False, compute_dtype=compute_dtype)
                          if size_in != size_out else None)
 
     def forward(self, x):
@@ -48,12 +130,18 @@ class MaskedBatchNorm(nn.Module):
     eps 1e-5; running statistics move by 0.1 of the batch statistic (flax
     momentum 0.9) and keep the biased batch variance — torch's own
     BatchNorm keeps the unbiased one, so the port has its own.
+
+    With a compute dtype (flax's `BatchNorm(dtype=...)`) the statistics
+    and the normalisation run in float32, as flax computes them, and the
+    output is rounded to the compute dtype once.
     """
 
-    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.compute_dtype = compute_dtype
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -62,6 +150,8 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        if self.compute_dtype is not None:
+            x = x.float()
         shape = [1] * x.dim()
         shape[1] = -1
         if self.training:
@@ -80,6 +170,10 @@ class MaskedBatchNorm(nn.Module):
                 self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
+        if self.compute_dtype is not None:  # flax's _normalize, then one rounding
+            mul = torch.rsqrt(var + self.eps) * self.weight
+            y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+            return y.to(self.compute_dtype)
         y = (x - mean.reshape(shape)) / torch.sqrt(var.reshape(shape) + self.eps)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
 
@@ -103,15 +197,25 @@ class SegHead1D(nn.Module):
 class SegHead2D(nn.Module):
     """Conv3x3 -> BN -> ReLU -> Conv3x3 over NHWC maps [N, H, W, C] -> [N, H, W, out].
     The convs run on the NCHW view of the NHWC tensor (channels-last
-    memory), so no layout copy is made."""
+    memory), so no layout copy is made. With a compute dtype the input is
+    cast to it, and the output is cast back to the input's dtype unless
+    `keep_compute_dtype`."""
 
-    def __init__(self, in_channels: int, out_channel: int):
+    def __init__(self, in_channels: int, out_channel: int,
+                 compute_dtype: torch.dtype | None = None, keep_compute_dtype: bool = False):
         super().__init__()
         mid = max(in_channels, out_channel)
+        self.compute_dtype = compute_dtype
+        self.keep_compute_dtype = keep_compute_dtype
         self.seg_head = nn.Sequential(
-            nn.Conv2d(in_channels, mid, 3, padding=1), MaskedBatchNorm(mid), nn.ReLU(),
-            nn.Conv2d(mid, out_channel, 3, padding=1),
+            Conv2d(in_channels, mid, 3, padding=1, compute_dtype=compute_dtype),
+            MaskedBatchNorm(mid, compute_dtype=compute_dtype), nn.ReLU(),
+            Conv2d(mid, out_channel, 3, padding=1, compute_dtype=compute_dtype),
         )
 
     def forward(self, x):
-        return self.seg_head(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        in_dtype = x.dtype
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        out = self.seg_head(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        return out if self.keep_compute_dtype else out.to(in_dtype)

@@ -21,6 +21,16 @@ gradients are `torch.autograd.Function`s (kernels/segscan.py,
 kernels/row_shift.py). As in the JAX package, the warp and the
 reconstruction read the BEV features and the ego pose detached.
 
+`precision.compute_dtype: bfloat16` runs the val and test forward with a
+bfloat16 backbone, its casts where the JAX package puts them: the pillar
+encoder's MLP and pools (K1 in bf16), the UNet, the FB and ego-feature
+heads (outputs kept in bf16; the FB decision compares the bf16 logits at
+the pillars), the shear warp of the bf16 canvas (K2 in bf16) and the
+STPN's convolutions; the densify runs in float32, the per-point gathers
+read bf16 rows and lerp them in float32, and Sinkhorn, Kabsch, ICP and
+every pose stay float32. Training in bf16 is not ported yet: `mode="train"`
+raises.
+
 Each stage runs inside a `torch.profiler.record_function` range named
 `motionnet.<stage>` (the ICP ranges `motionnet.icp_ego` and
 `motionnet.icp_instance` sit inside the ego and reconstruction stages);
@@ -78,8 +88,10 @@ class MotionNet(nn.Module):
         pe = cfg["pillar_encoder"]
         pose = cfg["pose_estimation"]
         dtype_name = cfg.get("precision", {}).get("compute_dtype", "float32")
-        if dtype_name != "float32":
-            raise NotImplementedError(f"compute_dtype={dtype_name!r}: only float32 is ported")
+        if dtype_name not in ("float32", "bfloat16"):
+            raise NotImplementedError(f"compute_dtype={dtype_name!r}: float32 and bfloat16 "
+                                      f"are ported")
+        cd = self.compute_dtype = None if dtype_name == "float32" else torch.bfloat16
         self.warp_mode = cfg.get("warp_mode", "shear")
         if self.warp_mode not in ("shear", "gather"):
             raise ValueError(f"warp_mode={self.warp_mode!r}")
@@ -92,12 +104,13 @@ class MotionNet(nn.Module):
 
         self.pillar_encoder = PillarFeatureNet(
             num_filters=c, depth=pe["depth"], voxel_size=vg["voxel_size"],
-            pc_range=vg["range"], n_sweeps=vg["n_sweeps"])
+            pc_range=vg["range"], n_sweeps=vg["n_sweeps"], compute_dtype=cd)
         self.unet = UNet(cfg["unet"]["in_channels"], cfg["unet"]["depth"],
-                         cfg["unet"]["start_filts"])
+                         cfg["unet"]["start_filts"], compute_dtype=cd, keep_compute_dtype=True)
         cf = cfg["unet"]["in_channels"]
-        self.semseg_head = SegHead2D(cf, 2)
-        self.ego_feats_head = SegHead2D(cf, pose["feats_dim"])
+        self.semseg_head = SegHead2D(cf, 2, compute_dtype=cd, keep_compute_dtype=True)
+        self.ego_feats_head = SegHead2D(cf, pose["feats_dim"], compute_dtype=cd,
+                                        keep_compute_dtype=True)
         self.ego_motion_head = EgoMotionHead(
             n_kpts=pose["n_kpts"], sinkhorn_iter=pose["sinkhorn_iter"],
             slack=pose["add_slack"], n_sweeps=vg["n_sweeps"], freq=cfg["data"]["freq"],
@@ -106,13 +119,14 @@ class MotionNet(nn.Module):
             icp=pose.get("icp", False), icp_threshold=pose.get("icp_threshold", 0.15),
             icp_max_iter=pose.get("icp_max_iter", 50))
         self.motionhead = STPN(feat_dim=cfg["stpn"]["feat_dim"], n_frames=vg["n_sweeps"],
-                               n_band_layers=cfg["stpn"].get("n_band_layers", 4))
+                               n_band_layers=cfg["stpn"].get("n_band_layers", 4),
+                               compute_dtype=cd)
         tp = cfg["tpointnet"]
         self.reconstructor = AlignNet(
             n_frames=vg["n_sweeps"], n_iterations=tp["n_iterations"],
             min_points_per_frame=tp["min_points"], icp=tp.get("icp", False),
             icp_threshold=tp.get("icp_threshold", 0.25), icp_max_iter=tp.get("icp_max_iter", 50),
-            icp_max_points=tp.get("icp_max_points", 1024))
+            icp_max_points=tp.get("icp_max_points", 1024), compute_dtype=cd)
 
     def forward(self, batch: dict, mode: str = "val",
                 generator: torch.Generator | None = None,
@@ -123,6 +137,10 @@ class MotionNet(nn.Module):
         instance labels to reconstruct instead of the clustering's."""
         if mode not in ("train", "val", "test"):
             raise ValueError(f"mode={mode!r}")
+        if mode == "train" and self.compute_dtype is not None:
+            raise NotImplementedError(
+                "compute_dtype=bfloat16 in train mode: the bf16 training slice (K1's bf16 "
+                "gradient) is not yet ported; bf16 runs the val and test forward")
         points = batch["points"].float()                  # [B, N, 3]
         time_idx = batch["time_idx"]                      # [B, N]
         point_valid = batch["point_valid"]                # [B, N]
@@ -147,22 +165,25 @@ class MotionNet(nn.Module):
                                                pillar_coords, pillar_mean, m)  # [B, M, C]
         c = pillar_feats.shape[-1]
         with record_function("motionnet.densify"):
-            packed = torch.cat([pillar_feats, pillar_valid[..., None].float(),
+            # float32 canvas; the UNet casts it to the compute dtype
+            packed = torch.cat([pillar_feats.float(), pillar_valid[..., None].float(),
                                 fb_pillar_gt[..., None].float()], dim=-1)
             canvas = scatter_pillars_to_bev(packed, pillar_coords, pillar_valid, t, (h, w))
             results["occ_map"] = canvas[..., c:c + 1]
             results["fb_seg_gt"] = canvas[..., c + 1:c + 2]
         with record_function("motionnet.unet"):
-            bev_feats = self.unet(canvas[..., :c].reshape(b * t, h, w, c))  # [B*T, H, W, Cf]
+            # [B*T, H, W, Cf] in the compute dtype
+            bev_feats = self.unet(canvas[..., :c].reshape(b * t, h, w, c))
         cf = bev_feats.shape[-1]
 
         # ---- 3. FB segmentation ---------------------------------------------
         with record_function("motionnet.fb_head"):
             fb_logits = self.semseg_head(bev_feats).reshape(b, t, h, w, 2)
-            results["fb_seg_est"] = fb_logits
+            results["fb_seg_est"] = fb_logits.float()
+            # the decision compares the compute-dtype logits, as in JAX
             fb_logit_pillar = gather_bev_at_pillars(fb_logits, pillar_coords, pillar_valid)
             fb_est_pillar = (fb_logit_pillar[..., 1] > fb_logit_pillar[..., 0]).to(torch.int32)
-            results["fb_logit_pillar"] = fb_logit_pillar
+            results["fb_logit_pillar"] = fb_logit_pillar.float()
             results["fb_pillar_gt"] = fb_pillar_gt
             fb_est_point = torch.gather(fb_est_pillar, 1, p2v.long().clamp(0, m - 1))
             fb_est_point = torch.where(point_valid, fb_est_point, 0)
@@ -171,7 +192,7 @@ class MotionNet(nn.Module):
         # ---- 4. ego motion ----------------------------------------------------
         with record_function("motionnet.ego"):
             ego_feats = self.ego_feats_head(bev_feats).reshape(b, t, h, w, -1)
-            ego_pillar = gather_bev_at_pillars(ego_feats, pillar_coords, pillar_valid)
+            ego_pillar = gather_bev_at_pillars(ego_feats, pillar_coords, pillar_valid).float()
             # eps inside the sqrt: invalid pillar rows are exactly zero
             ego_pillar = ego_pillar / torch.sqrt((ego_pillar ** 2).sum(-1, keepdim=True) + 1e-12)
             ego = self.ego_motion_head(
@@ -185,7 +206,8 @@ class MotionNet(nn.Module):
         # ---- 5. warp + motion segmentation ----------------------------------
         with record_function("motionnet.warp"):
             pose_est = results["ego_motion_est"].detach()
-            # fold to [B, H, W, T*Cf], t-minor: the layout of the row-shift warp
+            # fold to [B, H, W, T*Cf], t-minor: the layout of the row-shift
+            # warp, in the compute dtype (K2 in bf16 under bfloat16)
             bevf = (bev_feats.detach().reshape(b, t, h, w, cf).permute(0, 2, 3, 1, 4)
                     .reshape(b, h, w, t * cf))
             # pose 0 pinned to the exact identity: frame 0's shifts are ~0 and
@@ -278,8 +300,9 @@ class MotionNet(nn.Module):
                 r_points, r_points_raw, r_tid = transformed_points, points, time_idx
                 r_inst, r_mask, r_sd = inst_labels, rec_mask, batch["sd_labels"]
 
+            # gathers the compute-dtype rows, lerps them at float32 weights
             backbone_pp = temporal_ungrid(bev_feats.detach().reshape(b, t, h, w, cf),
-                                          r_points_raw[..., :2], r_tid, self.pc_range[0])
+                                          r_points_raw[..., :2], r_tid, self.pc_range[0]).float()
             mos_pp = ungrid(mos_map, r_points[..., :2], self.pc_range[0])
             rec = self.reconstructor(
                 r_points, r_tid, r_inst, r_mask, r_sd, backbone_pp, mos_pp,

@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from pcaccumulation_tpu_torch.models.layers import ResnetBlockFC
+from pcaccumulation_tpu_torch.models.layers import Linear, ResnetBlockFC
 from pcaccumulation_tpu_torch.ops.bilinear import gather_bev, scatter_bev
 from pcaccumulation_tpu_torch.ops.segment import (
     masked_seg_pool_max,
@@ -74,26 +74,32 @@ class PillarFeatureNet(nn.Module):
     """Per-point MLP with inter-block pillar max pooling, then a final
     pillar max. The 9-dim input is [xyz, dist-to-pillar-mean,
     dxy-to-pillar-centre, t]; spatial dims are normalised by |pc_range[0]|,
-    t by n_sweeps."""
+    t by n_sweeps. With a compute dtype the features are built in float32
+    and cast to it before the MLP stack, whose pools (kernel K1) and output
+    stay in it."""
 
     def __init__(self, num_filters: int = 32, depth: int = 3,
                  voxel_size=(0.25, 0.25, 8.0),
-                 pc_range=(-36.0, -36.0, -5.0, 36.0, 36.0, 3.0), n_sweeps: int = 5):
+                 pc_range=(-36.0, -36.0, -5.0, 36.0, 36.0, 3.0), n_sweeps: int = 5,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.num_filters = num_filters
         self.voxel_size = tuple(voxel_size)
         self.pc_range = tuple(pc_range)
         self.n_sweeps = n_sweeps
-        self.fc_pos = nn.Linear(9, 2 * num_filters)
+        self.compute_dtype = compute_dtype
+        self.fc_pos = Linear(9, 2 * num_filters, compute_dtype=compute_dtype)
         self.blocks = nn.ModuleList(
-            [ResnetBlockFC(2 * num_filters, num_filters) for _ in range(depth)])
-        self.fc_c = nn.Linear(num_filters, num_filters)
+            [ResnetBlockFC(2 * num_filters, num_filters, compute_dtype=compute_dtype)
+             for _ in range(depth)])
+        self.fc_c = Linear(num_filters, num_filters, compute_dtype=compute_dtype)
 
     def forward(self, points, time_idx, point_valid, pillar_of_point, pillar_coords,
                 pillar_mean, max_pillars: int):
         """points [B, N, 3], time_idx [B, N], point_valid [B, N] bool,
         pillar_of_point [B, N] in [0, M], pillar_coords [B, M, 3] (t, y, x),
-        pillar_mean [B, M, 3] -> pillar features [B, M, num_filters]."""
+        pillar_mean [B, M, 3] -> pillar features [B, M, num_filters] in the
+        compute dtype."""
         b, n, _ = points.shape
         m = max_pillars
         scale = abs(self.pc_range[0])
@@ -117,6 +123,8 @@ class PillarFeatureNet(nn.Module):
             dim=-1,
         )  # [B, N, 9]
 
+        if self.compute_dtype is not None:
+            feats = feats.to(self.compute_dtype)
         seg_ids = segment_ids(pillar_of_point, m)
         valid_flat = point_valid.reshape(-1)
         net = self.blocks[0](self.fc_pos(feats).reshape(b * n, -1))

@@ -6,7 +6,9 @@ Instances are flattened across the batch into G = B*K global slots with a
 static capacity K per sample; masks stand where the reference selects
 points dynamically. An instance with no anchor-frame points borrows its
 earliest occupied frame as frame 0 (counts, MOS maxima, centroid and the
-t=0 positional embedding).
+t=0 positional embedding). With a compute dtype the embedding MLPs and
+their max pools run in it; the pooled embeddings are cast back to float32,
+so the regressor, its BatchNorm and every pose stay float32.
 """
 
 from __future__ import annotations
@@ -51,13 +53,15 @@ def _take_time(arr, earliest):
 class TPointNet(nn.Module):
     """Pose regressor over G = B*K global instance slots."""
 
-    def __init__(self, n_frames: int = 5, min_points_per_frame: int = 10):
+    def __init__(self, n_frames: int = 5, min_points_per_frame: int = 10,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.n_frames = n_frames
         self.min_points_per_frame = min_points_per_frame
-        self.motion_embed = mlp(64, [64, 128, 128])
-        self.geo_embed = mlp(32, [32, 64, 128])
-        self.pos_embed = mlp(4, [32, 64, 128])
+        self.compute_dtype = compute_dtype
+        self.motion_embed = mlp(64, [64, 128, 128], compute_dtype=compute_dtype)
+        self.geo_embed = mlp(32, [32, 64, 128], compute_dtype=compute_dtype)
+        self.pos_embed = mlp(4, [32, 64, 128], compute_dtype=compute_dtype)
         self.regressor = nn.Sequential(
             nn.Linear(512, 256), MaskedBatchNorm(256), nn.ReLU(),
             nn.Linear(256, 128), MaskedBatchNorm(128), nn.ReLU(),
@@ -96,11 +100,13 @@ class TPointNet(nn.Module):
                                     frame_centroid[:, 0])  # [G, 3]
 
         inst_seg = torch.where(valid, inst_gid.long(), g)
-        mos_emb_pp = self.motion_embed(mos_feats)
-        geo_emb_pp = self.geo_embed(frame_feats)
+        cd = self.compute_dtype or dt
+
+        mos_emb_pp = self.motion_embed(mos_feats.to(cd))
+        geo_emb_pp = self.geo_embed(frame_feats.to(cd))
         ec = mos_emb_pp.shape[-1]
         emb_i = masked_segment_max(torch.cat([mos_emb_pp, geo_emb_pp], -1), inst_seg, valid,
-                                   g + 1)[:g]
+                                   g + 1)[:g].to(dt)
         mos_emb, geo_emb = emb_i[:, :ec], emb_i[:, ec:]
 
         centred = points - inst_centroid[inst_gid.long().clamp(0, g - 1)]
@@ -109,10 +115,10 @@ class TPointNet(nn.Module):
 
         # frame max [inst_mos | frame_emb | anchor_emb]
         max_f = masked_segment_max(
-            torch.cat([mos_labels.to(dt)[:, None], self.pos_embed(frame_in),
-                       self.pos_embed(anchor_in)], -1),
+            torch.cat([mos_labels.to(dt).to(cd)[:, None], self.pos_embed(frame_in.to(cd)),
+                       self.pos_embed(anchor_in.to(cd))], -1),
             frame_id, valid, gt_slots + 1,
-        )[:gt_slots]
+        )[:gt_slots].to(dt)
         inst_mos = borrow(max_f[:, 0].reshape(g, t))
         mos_weights = torch.where(inst_mos == 0, 0.2, 1.0)
         temporal = (torch.arange(t, dtype=dt, device=points.device) + 1) / self.n_frames
@@ -182,14 +188,14 @@ class AlignNet(nn.Module):
     def __init__(self, n_frames: int = 5, n_iterations: int = 1,
                  min_points_per_frame: int = 10, icp: bool = False,
                  icp_threshold: float = 0.25, icp_max_iter: int = 50,
-                 icp_max_points: int = 1024):
+                 icp_max_points: int = 1024, compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.n_iterations = n_iterations
         self.icp = icp
         self.icp_threshold = icp_threshold
         self.icp_max_iter = icp_max_iter
         self.icp_max_points = icp_max_points
-        self.alignment = TPointNet(n_frames, min_points_per_frame)
+        self.alignment = TPointNet(n_frames, min_points_per_frame, compute_dtype)
 
     def forward(self, transformed_points, time_idx, inst_idx, rec_mask, mos_labels,
                 backbone_feats, mos_feats, inst_motion_gt, ego_motion_gt,

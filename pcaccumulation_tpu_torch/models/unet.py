@@ -1,6 +1,7 @@
 """2D UNet on BEV maps (the port of the JAX package's `models/unet.py`,
 plain form: the space-to-depth level 0 is the same function and is not
-ported). Tensors inside are NCHW; the public UNet takes and returns NHWC."""
+ported). Tensors inside are NCHW; the public UNet takes and returns NHWC.
+With a compute dtype every convolution runs in it (models/layers.py)."""
 
 from __future__ import annotations
 
@@ -10,14 +11,17 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pcaccumulation_tpu_torch.models.layers import Conv2d, ConvTranspose2d
+
 
 class DownConv(nn.Module):
     """Two 3x3 convs (+ReLU) and an optional 2x2 max pool."""
 
-    def __init__(self, in_channels: int, out_channels: int, pooling: bool = True):
+    def __init__(self, in_channels: int, out_channels: int, pooling: bool = True,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
         self.pooling = pooling
 
     def forward(self, x):
@@ -29,29 +33,34 @@ class DownConv(nn.Module):
 class UpConv(nn.Module):
     """2x2 stride-2 transpose-conv upsample, concat [up, skip], two 3x3 convs."""
 
-    def __init__(self, in_channels: int, skip_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, skip_channels: int, out_channels: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.upconv = nn.ConvTranspose2d(in_channels, out_channels, 2, stride=2)
-        self.conv1 = nn.Conv2d(out_channels + skip_channels, out_channels, 3, padding=1)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.upconv = ConvTranspose2d(in_channels, out_channels, 2, stride=2,
+                                      compute_dtype=compute_dtype)
+        self.conv1 = Conv2d(out_channels + skip_channels, out_channels, 3, padding=1,
+                            compute_dtype=compute_dtype)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
 
     def forward(self, from_down, from_up):
         x = torch.cat([self.upconv(from_up), from_down], dim=1)
         return torch.relu(self.conv2(torch.relu(self.conv1(x))))
 
 
-def make_unet_convs(in_channels: int, down_widths: Sequence[int],
-                    up_widths: Sequence[int]) -> tuple[nn.ModuleList, nn.ModuleList]:
+def make_unet_convs(in_channels: int, down_widths: Sequence[int], up_widths: Sequence[int],
+                    compute_dtype: torch.dtype | None = None
+                    ) -> tuple[nn.ModuleList, nn.ModuleList]:
     """Encoder levels of the given widths (no pool after the last) and
     decoder levels whose skip is the encoder level of matching depth."""
     down = nn.ModuleList()
     c = in_channels
     for i, w in enumerate(down_widths):
-        down.append(DownConv(c, w, pooling=i < len(down_widths) - 1))
+        down.append(DownConv(c, w, pooling=i < len(down_widths) - 1,
+                             compute_dtype=compute_dtype))
         c = w
     up = nn.ModuleList()
     for i, w in enumerate(up_widths):
-        up.append(UpConv(c, down_widths[-(i + 2)], w))
+        up.append(UpConv(c, down_widths[-(i + 2)], w, compute_dtype=compute_dtype))
         c = w
     return down, up
 
@@ -69,15 +78,25 @@ def run_unet(down: nn.ModuleList, up: nn.ModuleList, x: torch.Tensor) -> torch.T
 
 class UNet(nn.Module):
     """Encoder/decoder with `depth` levels, start_filts doubling per level,
-    and a final 3x3 conv back to in_channels. NHWC in and out."""
+    and a final 3x3 conv back to in_channels. NHWC in and out. With a
+    compute dtype the input is cast to it, and the output is cast back to
+    the input's dtype unless `keep_compute_dtype`."""
 
-    def __init__(self, in_channels: int = 32, depth: int = 5, start_filts: int = 32):
+    def __init__(self, in_channels: int = 32, depth: int = 5, start_filts: int = 32,
+                 compute_dtype: torch.dtype | None = None, keep_compute_dtype: bool = False):
         super().__init__()
+        self.compute_dtype = compute_dtype
+        self.keep_compute_dtype = keep_compute_dtype
         down_widths = [start_filts * 2 ** i for i in range(depth)]
         self.down_convs, self.up_convs = make_unet_convs(
-            in_channels, down_widths, down_widths[-2::-1])
-        self.conv_final = nn.Conv2d(start_filts, in_channels, 3, padding=1)
+            in_channels, down_widths, down_widths[-2::-1], compute_dtype)
+        self.conv_final = Conv2d(start_filts, in_channels, 3, padding=1,
+                                 compute_dtype=compute_dtype)
 
     def forward(self, x):
+        in_dtype = x.dtype
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         x = run_unet(self.down_convs, self.up_convs, x.permute(0, 3, 1, 2))
-        return self.conv_final(x).permute(0, 2, 3, 1)
+        out = self.conv_final(x).permute(0, 2, 3, 1)
+        return out if self.keep_compute_dtype else out.to(in_dtype)

@@ -218,7 +218,8 @@ class Trainer:
     def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """One micro-step: forward in train mode (batch statistics, running
         statistics updated), FuseLoss, backward, and the optimizer's
-        accumulate-or-update. batch: tensors on the device."""
+        accumulate-or-update. batch: tensors on the device. A bf16 model
+        raises NotImplementedError (MotionNet refuses train mode in bf16)."""
         self.model.train()
         results = self.model(batch, mode="train", generator=generator)
         stats = fuse_loss(results, batch, self.cfg["loss"],
@@ -296,6 +297,8 @@ class Trainer:
 
     # ------------------------------------------------------------------ api
     def train(self):
+        # the training loop's own check (a bf16 config is refused here)
+        check_supported(dict(self.cfg, misc=dict(self.cfg["misc"], mode="train")))
         for epoch in range(self.start_epoch, self.max_epoch):
             self.logger.write(f"epoch {epoch} lr {self.current_lr():.3e}\n")
             self.inference_one_epoch(epoch, "train")

@@ -3,7 +3,8 @@
 CPU: the port's plain versions against the JAX package's Pallas kernels run
 in interpret mode and against its references, on the same numpy inputs.
 CUDA (marked `cuda`, skipped without a card): each kernel and its gradient
-against their plain versions on the card. The CUDA tests import no JAX, so on a machine without
+against their plain versions on the card, and the bf16 kernels of K1 and K2
+against theirs (the CPU's bf16 tests are in tests/test_torch_precision.py). The CUDA tests import no JAX, so on a machine without
 it they run with
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -359,3 +360,76 @@ def test_row_shift_kernel_on_misaligned_image(cuda):
     k = torch.floor(st)
     want = row_shift_blocks_plain(it, k.clamp(-96, 96).to(torch.int32), (st - k), 5)
     torch.testing.assert_close(row_shift_blocks(it, st, 5), want, rtol=1e-6, atol=1e-6)
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values (8 significant bits) at |a|, float32."""
+    a = a.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c", [(name, 32) for name in K1_EDGES]
+                         + [(name, 9) for name in ("n=515", "on_tile_edges", "one_run")])
+def test_seg_pool_bf16_kernel_at_tile_edges(cuda, name, c):
+    """The bf16 kernel (one launch on `launches_bf16`, none on the float32
+    count) at the tile edges: max torch.equal to the plain version (bf16
+    in, float32 compare, bf16 out: no rounding); sum within 1 bf16 ulp of
+    the plain version (both reduce in float32 and round once; their float32
+    orders differ by up to 1e-5 of the segment's sum of |x|, added to the
+    bound), and two calls torch.equal."""
+    x, ids, _ = _k1_edge_case(name, c)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    it = torch.from_numpy(ids).to(cuda)
+    before = seg_pool.launches, seg_pool.launches_bf16
+    y = seg_pool(xt, it, "max")
+    assert (seg_pool.launches, seg_pool.launches_bf16) == (before[0], before[1] + 1)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, seg_pool_plain(xt, it, "max"))
+    s1, s2 = seg_pool(xt, it, "sum"), seg_pool(xt, it, "sum")
+    assert torch.equal(s1, s2)
+    want = seg_pool_plain(xt, it, "sum")
+    abs_x = seg_pool_plain(xt.float().abs(), it, "sum")
+    tol = _bf16_ulp(torch.maximum(want.float().abs(), s1.float().abs())) + 1e-5 * abs_x
+    assert bool(((s1.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,r,w,c", [(5, 288, 288, 32), (11, 288, 288, 32), (5, 288, 288, 9),
+                                      (1, 1152, 288, 32), (3, 40, 1500, 16)])
+def test_row_shift_bf16_kernel_matches_plain(cuda, nb, r, w, c):
+    """The bf16 kernel (one launch on `launches_bf16`) against the plain
+    version on the same bf16 image: the same float32 lerp rounded once;
+    within 1 bf16 ulp (a float32 result on a rounding tie may go either
+    way). A zero shift passes the bits through."""
+    img, shifts = _row_shift_case(4, nb, r=r, w=w, c=c)
+    it = torch.from_numpy(img).to(cuda).to(torch.bfloat16)
+    st = torch.from_numpy(shifts).to(cuda)
+    before = row_shift_blocks.launches, row_shift_blocks.launches_bf16
+    got = row_shift_blocks(it, st, nb)
+    assert (row_shift_blocks.launches, row_shift_blocks.launches_bf16) == (before[0],
+                                                                         before[1] + 1)
+    k = torch.floor(st)
+    want = row_shift_blocks_plain(it, k.clamp(-w, w).to(torch.int32), (st - k), nb)
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs()
+                 <= _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).all())
+    zero = (st == 0).nonzero()
+    for row, b in zero.tolist()[:8]:
+        assert torch.equal(got[row, :, b * c:(b + 1) * c], it[row, :, b * c:(b + 1) * c])
+
+
+@pytest.mark.cuda
+def test_row_shift_bf16_kernel_on_misaligned_image(cuda):
+    """A bf16 image 2 bytes past a 16-byte boundary takes the kernel's
+    one-channel path (plain copies into the slab), with the same result."""
+    img, shifts = _row_shift_case(9, 5, r=64, w=96, c=8)
+    flat = torch.empty(img.size + 1, device=cuda, dtype=torch.bfloat16)
+    it = flat[1:].view(img.shape)
+    it.copy_(torch.from_numpy(img))
+    assert it.data_ptr() % 16 != 0
+    st = torch.from_numpy(shifts).to(cuda)
+    k = torch.floor(st)
+    want = row_shift_blocks_plain(it, k.clamp(-96, 96).to(torch.int32), (st - k), 5)
+    got = row_shift_blocks(it, st, 5)
+    assert bool(((got.float() - want.float()).abs()
+                 <= _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).all())
