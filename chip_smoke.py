@@ -11,7 +11,9 @@ row_shift through warp_bev / warp_bev_batch, K4 nn at the ICP shapes with
 and without a query mask and with references packed once, and the Chamfer
 distance on K4; the bf16 kernels of K1 at the tile edges and at
 [120000, 32] and of K2 at [288, 288, 352] nb=11 and at C=9, K3 in bf16
-once), then drives the paths of the port at the full default
+once; the bf16 gradients of K1 at the tile edges and at [480000, 32] and
+of K2 at [288, 288, 352] nb=11), then drives the paths of the port at the
+full default
 config (configs/default.yaml: T=5, 288x288 BEV, 90k points, 30k pillars,
 float32) with seeded random weights on synthetic scenes, the FB and MOS
 heads' biases set to scene 0's label shares (`calibrate_heads`), so that
@@ -37,7 +39,14 @@ the ego head sees background:
   the bf16 val forward (launch counts per kernel and dtype: K1-bf16 2 and
   K2-bf16 3 per forward, no float32 K1 or K2) and the test forward with
   both ICPs, each held against the float32 forward on the same weights
-  and batch and timed beside it; the CLI's test mode on the preset.
+  and batch and timed beside it; the CLI's test mode on the preset;
+- the nuScenes preset's bf16 training: `Trainer.train_step` at B=4 and
+  iter_size 2 (launch counts per kernel, dtype and direction: K1-bf16
+  forward and gradient 2 and K2-bf16 forward 3 per micro-step, no K2
+  gradient, no float32 K1 or K2), timed beside the float32 micro-step with
+  peak memory; the bf16 gradient held against the float32 one per leaf
+  (`bf16_leaf_criterion`); the CLI's train mode on the preset for one
+  epoch, with its checkpoints.
 Any failure exits non-zero. The last two lines of stdout are the `kernels`
 JSON line and the result line `{"ok": true, "device": {...}}`. Without a
 CUDA device it exits 1 and prints no result. With `--only kernels` it stops
@@ -158,10 +167,10 @@ def k2_check(gen: torch.Generator, dev, nb: int, c: int):
     return img, shifts, g, wants, errs
 
 
-def k1_batch_inputs(gen: torch.Generator, dev, b: int):
+def k1_batch_inputs(gen: torch.Generator, dev, b: int, n: int = 90000):
     """b samples of `k1_inputs` stacked, ids offset per sample as the
-    pillar encoder offsets them: x [b*90000, 32], sorted ids."""
-    xs, ids = zip(*(k1_inputs(gen, "cpu") for _ in range(b)))
+    pillar encoder offsets them: x [b*n, 32], sorted ids."""
+    xs, ids = zip(*(k1_inputs(gen, "cpu", n) for _ in range(b)))
     offs, out = 0, []
     for i in ids:
         out.append(i + offs)
@@ -576,6 +585,172 @@ def bf16_kernel_phase(dev, gen) -> dict:
             f"plain {row['plain_ms']:.4f} ms; library {row['library_ms']}"
             + (f"; C entry queued {row['entry_ms']:.4f} ms" if "entry_ms" in row else ""))
     del want_n
+    return rows
+
+
+def k1_bf16_grad_check(what: str, x: torch.Tensor, ids: torch.Tensor,
+                       g: torch.Tensor) -> tuple[float, int]:
+    """K1's bf16 gradient kernel (max) against its plain version on the
+    same bf16 x, its max y and a bf16 cotangent g: bit-equal, or within 1
+    bf16 ulp of the share (plus 1e-5 of the segment's sum|g| over its tie
+    count) where the two float32 sums of a segment round to neighbouring
+    bf16 values (the plain sum on the card adds by atomics, the kernel in
+    its fixed tree); zero off the tie set; two calls torch.equal; one
+    launch per call on `seg_pool_backward.launches_bf16`, none on the
+    float32 count; through SegPool's backward the same bits. Returns (max
+    abs error, rows not bit-equal)."""
+    from pcaccumulation_tpu_torch.kernels.segscan import (
+        seg_pool,
+        seg_pool_backward,
+        seg_pool_backward_plain,
+        seg_pool_plain,
+    )
+
+    y = seg_pool(x, ids, "max")
+    before = seg_pool_backward.launches, seg_pool_backward.launches_bf16
+    b1, b2 = seg_pool_backward(x, ids, y, g), seg_pool_backward(x, ids, y, g)
+    after = seg_pool_backward.launches, seg_pool_backward.launches_bf16
+    if after != (before[0], before[1] + 2):
+        fail(f"K1 bf16 gradient ({what}): counts {before} -> {after}, want two bf16 launches")
+    want = seg_pool_backward_plain(x, ids, y, g)
+    tie = x == y
+    nt = seg_pool_plain(tie.float(), ids, "sum").clamp(min=1.0)
+    err = (b1.float() - want.float()).abs()
+    tol = (bf16_ulp(torch.maximum(b1.float().abs(), want.float().abs()))
+           + 1e-5 * seg_pool_plain(g.float().abs(), ids, "sum") / nt)
+    if b1.dtype != torch.bfloat16 or not bool((err <= tol).all()):
+        fail(f"K1 bf16 gradient ({what}) beyond 1 bf16 ulp of the plain version "
+             f"({float(err.max())})")
+    if not bool((b1[~tie] == 0).all()):
+        fail(f"K1 bf16 gradient ({what}) is not zero off the tie set")
+    if not torch.equal(b1, b2):
+        fail(f"K1 bf16 gradient ({what}): two calls differ")
+    xg = x.clone().requires_grad_(True)
+    seg_pool(xg, ids, "max").backward(g)
+    if not torch.equal(xg.grad, b1):
+        fail(f"K1 bf16 gradient ({what}) through SegPool differs from the direct call")
+    torch.cuda.synchronize()
+    return float(err.max()), int((err > 0).any(-1).sum())
+
+
+def bf16_grad_phase(dev, gen) -> dict:
+    """The bf16 gradients of K1 and K2 against their plain versions: K1's
+    at PR 6's tile edges in bf16 (C=32, and C=9 on the small cases; every
+    other row rounded to halves, and bf16's own rounding, force ties) and
+    at the nuScenes train step's [480000, 32] (B=4 samples of 120,000
+    points, each with a 40,000-row tail at -1e30 that ties throughout),
+    timed through the wrapper and at the C entry point; K2's (the bf16
+    kernel at -shifts) at [288, 288, 352] nb=11, through RowShift's
+    backward and the direct call, timed beside `F.grid_sample` in bf16.
+    Returns the two rows of the `kernels` line (launches None until the
+    nuScenes train phase's counts are read)."""
+    from pcaccumulation_tpu_torch.kernels import build
+    from pcaccumulation_tpu_torch.kernels.row_shift import (
+        row_shift_blocks,
+        row_shift_blocks_backward,
+        row_shift_blocks_plain,
+    )
+    from pcaccumulation_tpu_torch.kernels.segscan import (
+        TILE_ROWS,
+        seg_pool_backward,
+        seg_pool_backward_plain,
+        seg_pool_plain,
+    )
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 8)
+    cases = [(name, 32) for name in K1_EDGES] + [(name, 9) for name in K1_EDGES[:9]]
+    worst, n_off = 0.0, 0
+    for name, c in cases:
+        x, ids, g = (torch.from_numpy(a).to(dev) for a in k1_edge_case(name, c, rng))
+        err, off = k1_bf16_grad_check(f"{name}, C={c}", x.to(bf), ids, g.to(bf))
+        worst, n_off = max(worst, err), n_off + off
+    x4, ids4 = k1_batch_inputs(gen, dev, 4, n=120000)
+    x4 = tie_values(x4).to(bf)
+    g4 = torch.randn(x4.shape, generator=gen).to(dev).to(bf)
+    k1_err, off4 = k1_bf16_grad_check("[480000, 32]", x4, ids4, g4)
+    y4 = seg_pool_plain(x4, ids4, "max")
+    n_tied = int((x4 == y4).sum())
+    log(f"K1 bf16 gradient at the tile edges ({len(cases)} cases) and at [480000, 32] ({n_tied} "
+        f"tied values of 480000 x 32): max abs err {max(worst, k1_err):.2e} against the plain "
+        f"version (tol 1 bf16 ulp of the share + 1e-5 of sum|g| / ties); rows not bit-equal: "
+        f"{n_off} over the edge cases, {off4} of 480000 at [480000, 32]; zero off the tie set; "
+        f"two calls and SegPool's backward torch.equal")
+
+    lib = build.load_library("segscan")
+    stream = build.stream(x4)
+    n, c = x4.shape
+    out = torch.empty_like(x4)
+    scratch = torch.empty(-(-n // TILE_ROWS) * (4 * c + 1), device=dev)
+
+    def entry_bwd():
+        lib.segpool_backward_max_bf16(x4.data_ptr(), y4.data_ptr(), g4.data_ptr(),
+                                      ids4.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                      scratch.numel(), n, c, stream)
+
+    # reads x, y, g (bf16) and ids once, writes the gradient (bf16) once
+    k1_bound, k1_by = bound_ms(4 * n * c * 2 + n * 4, 5 * n * c)
+
+    # K2's gradient at the nuScenes warp's shape
+    nb = 11
+    g2, shifts = k2_inputs(gen, dev, nb, 32)
+    g2 = g2.to(bf)
+    r, w, ctot = g2.shape
+    kn = torch.floor(-shifts)
+    ki, fr = kn.clamp(-w, w).to(torch.int32), (-shifts - kn).float()
+    before = row_shift_blocks_backward.launches, row_shift_blocks_backward.launches_bf16
+    got = row_shift_blocks_backward(g2, shifts, nb)
+    img = torch.zeros_like(g2).requires_grad_(True)
+    row_shift_blocks(img, shifts, nb).backward(g2)
+    after = row_shift_blocks_backward.launches, row_shift_blocks_backward.launches_bf16
+    if after != (before[0], before[1] + 2):
+        fail(f"K2 bf16 gradient: counts {before} -> {after}, want two bf16 launches")
+    want = row_shift_blocks_plain(g2, ki, fr, nb)
+    torch.cuda.synchronize()
+    k2_err = (got.float() - want.float()).abs()
+    if got.dtype != bf or not bool(
+            (k2_err <= bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).all()):
+        fail(f"K2 bf16 gradient differs from the plain version beyond 1 bf16 ulp "
+             f"({float(k2_err.max())})")
+    if not torch.equal(img.grad, got):
+        fail("K2 bf16 gradient through RowShift differs from the direct call")
+    log(f"K2 bf16 gradient [288, 288, 352] nb=11 (the bf16 kernel at -shifts): max abs err "
+        f"{float(k2_err.max()):.2e} (tol 1 bf16 ulp of the plain version); RowShift's backward "
+        f"torch.equal to the direct call")
+    k2_bound, k2_by = bound_ms(2 * g2.numel() * 2 + shifts.numel() * 4, 3 * g2.numel())
+    g_g = g2.reshape(r, w, nb, ctot // nb).permute(0, 2, 3, 1).reshape(r * nb, ctot // nb, 1, w)
+    xs = torch.arange(w, device=dev, dtype=torch.float32)[None, :] + (ki.float() + fr).reshape(
+        -1, 1)
+    grid = torch.stack([(2 * xs + 1) / w - 1, torch.zeros_like(xs)], -1)[:, None].to(bf)
+    rows = {
+        "seg_pool_backward_bf16": {
+            "name": "seg_pool_backward_bf16", "route": "cuda",
+            "source": "pcaccumulation_tpu_torch/csrc/segscan.cu",
+            "replaces": "pcaccumulation_tpu/kernels/segscan.py:271",
+            "launches": None, "max_abs_err": k1_err,
+            "ms": cuda_ms(lambda: seg_pool_backward(x4, ids4, y4, g4), iters=50),
+            "plain_ms": cuda_ms(lambda: seg_pool_backward_plain(x4, ids4, y4, g4)),
+            "bound_ms": k1_bound, "bound_by": k1_by,
+            "library_ms": None,  # no single PyTorch call computes the tie-split gradient
+            "entry_ms": cuda_ms_queued(entry_bwd, iters=100),
+        },
+        "row_shift_blocks_backward_bf16": {
+            "name": "row_shift_blocks_backward_bf16", "route": "cuda",
+            "source": "pcaccumulation_tpu_torch/csrc/row_shift.cu",
+            "replaces": "pcaccumulation_tpu/ops/bilinear.py:485",
+            "launches": None, "max_abs_err": float(k2_err.max()),
+            "ms": cuda_ms(lambda: row_shift_blocks_backward(g2, shifts, nb)),
+            "plain_ms": cuda_ms(lambda: row_shift_blocks_plain(g2, ki, fr, nb)),
+            "bound_ms": k2_bound, "bound_by": k2_by,
+            "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
+                g_g, grid, mode="bilinear", padding_mode="zeros", align_corners=False)),
+        },
+    }
+    for key, row in rows.items():
+        log(f"{key}: {row['ms']:.4f} ms through the wrapper; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}); plain {row['plain_ms']:.4f} ms; library {row['library_ms']}"
+            + (f"; C entry queued {row['entry_ms']:.4f} ms, {row['bound_ms'] / row['entry_ms']:.3f}"
+               f" of the bound" if "entry_ms" in row else ""))
     return rows
 
 
@@ -1240,7 +1415,7 @@ def bf16_vs_f32(what: str, o16: dict, o32: dict, batch: dict, rec_share_min: flo
     return m
 
 
-def nuscenes_phase(port, smi: str) -> tuple[dict, dict]:
+def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     """The nuScenes preset (configs/nuscene.yaml: T=11, 288x288 BEV, 120,000
     points, 40,000 pillars, 48 instances, compute_dtype bfloat16) on the
     card, seeded weights (`flax_init`; the TPointNet regressor's last layer
@@ -1252,7 +1427,7 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict]:
     each held against the float32 forward on the same weights and batch
     (`bf16_vs_f32`), the val forward also against the bf16 forward on the
     CPU, and timed beside the float32 ones. Returns (the bf16 launch counts of the val path,
-    the times)."""
+    the times, the float32 model's weights)."""
     import copy
     import math
 
@@ -1261,9 +1436,11 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict]:
     from pcaccumulation_tpu_torch.kernels.chamfer import nn
     from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
     from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
-    from pcaccumulation_tpu_torch.data.dataset import prep_sample
-    from pcaccumulation_tpu_torch.data.synthetic import generate_sample
-    from pcaccumulation_tpu_torch.profile_forward import calibrate_heads, test_mode_config
+    from pcaccumulation_tpu_torch.profile_forward import (
+        calibrate_heads,
+        default_scenes,
+        test_mode_config,
+    )
 
     t0 = time.perf_counter()
     cfg16 = load_config("configs/nuscene.yaml",
@@ -1272,13 +1449,9 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict]:
     cfg16["pose_estimation"]["deterministic_sampling"] = True
     cfg32 = copy.deepcopy(cfg16)
     cfg32["precision"]["compute_dtype"] = "float32"
-    # scenes that fill the preset in all 11 sweeps: 32 static clusters and 6
-    # moving objects per sweep put ~10,700 points and ~3,300 pillars in each
-    # (default_scenes' T=5 density would leave the last sweeps past the
-    # 40,000-pillar capacity, and their ego poses at the identity)
-    batches = [port.to_device(collate([prep_sample(generate_sample(
-        seed=s, n_frames=11, freq=cfg16["data"]["freq"], n_static_clusters=32, n_dynamic=6,
-        pts_per_cluster=400, pts_per_object=230), cfg16)])) for s in range(2)]
+    # scenes that fill the preset in all 11 sweeps (`default_scenes` at 11
+    # sweeps: ~10,700 points and ~3,300 pillars in each)
+    batches = [port.to_device(collate([s])) for s in default_scenes(cfg16, 2)]
     n_fwd = len(batches)
     m32 = port.build_model(cfg32)
     flax_init(m32, SEED)
@@ -1438,7 +1611,7 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict]:
         f"{k} {v[0]:.3f} ({', '.join(f'{t:.3f}' for t in v[1])})" for k, v in times.items())
         + f"; peak memory of one val forward bf16 {peak16:.3f} GiB, float32 {peak32:.3f} GiB; "
         f"on {smi} ({time.perf_counter() - t0:.1f} s)")
-    return val_counts, {k: v[0] for k, v in times.items()}
+    return val_counts, {k: v[0] for k, v in times.items()}, m32.state_dict()
 
 
 def nuscenes_cli_phase(port) -> None:
@@ -1486,6 +1659,269 @@ def nuscenes_cli_phase(port) -> None:
     log(f"nuScenes CLI (configs/nuscene.yaml, --misc.mode=test --train.ckpt_backend=pickle): "
         f"one test scene dumped, K1-bf16 {k1_per}x and K2-bf16 3x, no float32 kernel "
         f"({time.perf_counter() - t0:.1f} s)")
+
+
+BF16_LEAF_REL, BF16_LEAF_COS = 0.5, 0.85  # PERF.md §6, PR 8: written before the first chip run
+
+
+def bf16_leaf_criterion(g16: dict, g32: dict, names: list) -> tuple[int, int, float, float, str]:
+    """The bf16 gradient against the float32 one on the card, per leaf of
+    `names` above a noise floor of 1e-5 of the largest float32 leaf norm:
+    rel-norm < BF16_LEAF_REL and cosine > BF16_LEAF_COS (bf16 rounds each
+    product to 8 significant bits, the FB decisions and the keypoints they
+    choose move with an ulp: a leaf's gradient is a noisy estimate of the
+    float32 one, not a rounding of it). More leaves checked than below the
+    floor. Returns (checked, noise, worst rel, worst cos, worst leaf) and
+    fails on a leaf that misses it."""
+    floor = max(float(g32[n].norm()) for n in names) * 1e-5
+    checked = noise = 0
+    worst = (0.0, 1.0, "")
+    for n in names:
+        a, b = g16[n].double().ravel(), g32[n].double().ravel()
+        if float(b.norm()) < floor:
+            noise += 1
+            continue
+        rel = float((a - b).norm()) / max(float(a.norm()), float(b.norm()))
+        cos = float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+        worst = max(worst, (rel, cos, n))
+        if rel >= BF16_LEAF_REL or cos <= BF16_LEAF_COS:
+            fail(f"bf16 vs float32 gradient of {n}: rel-norm {rel:.3e}, cosine {cos:.6f}")
+        checked += 1
+    if checked <= noise:
+        fail(f"bf16 vs float32 gradients: {checked} leaves checked, {noise} below the noise floor")
+    return checked, noise, worst[0], worst[1], worst[2]
+
+
+def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
+    """The nuScenes preset's training micro-step in bf16 (configs/nuscene.yaml,
+    `Trainer.train_step` at B=4 and iter_size 2, train-mode BN, the random
+    keypoint draw) on four synthetic 11-sweep scenes (`default_scenes`) and
+    the nuScenes phase's weights (`state`: flax's init, calibrated heads):
+    warm-up micro-steps, then timed ones with the kernels' counts zeroed
+    before and read after (per micro-step K1-bf16 forward and gradient
+    `pillar_encoder.depth - 1` times each, K2-bf16 forward 3 times, no K2
+    gradient, no float32 K1 or K2), finite loss terms, Adam's count, peak
+    memory; the float32 micro-step at the same preset, weights and batch
+    timed beside it. Then the bf16 gradient against the float32 one (B=1,
+    eval BN, deterministic keypoints) by `bf16_leaf_criterion`: (a) FuseLoss
+    without the TPointNet objective, every leaf; (b) the whole FuseLoss,
+    every leaf not upstream of the TPointNet's max pools, the others
+    reported beside two float32 runs' own spread. Returns the bf16 launch
+    counts of the timed micro-steps and the measures."""
+    import copy
+
+    from pcaccumulation_tpu_torch.config import check_supported, load_config
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.kernels.chamfer import nn
+    from pcaccumulation_tpu_torch.kernels.row_shift import (
+        row_shift,
+        row_shift_blocks,
+        row_shift_blocks_backward,
+    )
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_backward
+    from pcaccumulation_tpu_torch.profile_forward import default_scenes
+    from pcaccumulation_tpu_torch.train.loss import fuse_loss
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg16 = load_config("configs/nuscene.yaml",
+                        ["--misc.mode=train", "--train.ckpt_backend=pickle"])
+    check_supported(cfg16)
+    cfg32 = copy.deepcopy(cfg16)
+    cfg32["precision"]["compute_dtype"] = "float32"
+    bsz, iter_size = cfg16["train"]["batch_size"], cfg16["train"]["iter_size"]
+    k1_per = cfg16["pillar_encoder"]["depth"] - 1
+    scenes = default_scenes(cfg16, bsz)
+    batch = port.to_device(collate(scenes))
+    log(f"nuScenes train batch: B={bsz}, valid points "
+        f"{[int(x) for x in batch['point_valid'].sum(1)]}, valid pillars "
+        f"{[int(x) for x in batch['pillar_valid'].sum(1)]} ({time.perf_counter() - t0:.1f} s host "
+        f"prep)")
+    counters = {"K1": (seg_pool, "launches"), "K1-bf16": (seg_pool, "launches_bf16"),
+                "K1 bwd": (seg_pool_backward, "launches"),
+                "K1 bwd-bf16": (seg_pool_backward, "launches_bf16"),
+                "K2": (row_shift_blocks, "launches"), "K2-bf16": (row_shift_blocks, "launches_bf16"),
+                "K2 bwd": (row_shift_blocks_backward, "launches"),
+                "K2 bwd-bf16": (row_shift_blocks_backward, "launches_bf16"),
+                "K3": (row_shift, "launches"), "K3-bf16": (row_shift, "launches_bf16"),
+                "K4": (nn, "launches")}
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_nus_train_")
+    res = {}
+    try:
+        for name, cfg, n_warm, n_timed in (("bf16", cfg16, 2, 4), ("f32", cfg32, 1, 2)):
+            model = port.build_model(cfg)
+            model.load_state_dict(state)
+            warm = Trainer(cfg, model, {"train": [batch, batch]}, save_dir=run_dir)
+            for i in range(n_warm):
+                warm.train_step(batch, warm.step_generator(0, "train", i))
+            model.load_state_dict(state)
+            tr = Trainer(cfg, model, {"train": [batch, batch]}, save_dir=run_dir)
+            before = [p.detach().clone() for p in tr.params]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            times, stats = [], []
+            for i in range(n_timed):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                stats.append(tr.train_step(batch, tr.step_generator(1, "train", i)))
+                end.record()
+                times.append(sync_ms(start, end))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            counts = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+            for i, st in enumerate(stats):
+                for key, v in st.items():
+                    vals = v.values() if isinstance(v, dict) else [v]
+                    if not all(bool(torch.isfinite(torch.as_tensor(a)).all()) for a in vals):
+                        fail(f"nuScenes {name} micro-step {i}: non-finite {key}")
+            if tr.optimizer.count != n_timed // iter_size or tr.optimizer.n_skipped:
+                fail(f"nuScenes {name}: Adam's count {tr.optimizer.count} (skipped "
+                     f"{tr.optimizer.n_skipped}) after {n_timed} micro-steps at iter_size "
+                     f"{iter_size}")
+            moved = sum(not torch.equal(a, p.detach()) for a, p in zip(before, tr.params))
+            if moved < len(tr.params) // 2 or any(p.dtype != torch.float32 for p in tr.params):
+                fail(f"nuScenes {name}: {moved} of {len(tr.params)} float32 parameters moved")
+            res[name] = {"ms": statistics.median(times), "all": times, "peak_gib": peak,
+                         "counts": counts, "loss": [float(st["loss"]) for st in stats],
+                         "moved": moved, "updates": tr.optimizer.count}
+        want = dict.fromkeys(counters, 0)
+        n16 = len(res["bf16"]["all"])
+        want.update({"K1-bf16": k1_per * n16, "K1 bwd-bf16": k1_per * n16, "K2-bf16": 3 * n16})
+        if res["bf16"]["counts"] != want:
+            fail(f"nuScenes bf16 micro-steps launched {res['bf16']['counts']}, want {want}")
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    r16, r32 = res["bf16"], res["f32"]
+    log(f"nuScenes bf16 train: {n16} micro-steps launched {r16['counts']}; Adam's count "
+        f"{r16['updates']}, {r16['moved']} float32 parameters moved; loss "
+        + ", ".join(f"{x:.4f}" for x in r16["loss"]) + "; float32 loss "
+        + ", ".join(f"{x:.4f}" for x in r32["loss"]))
+    log(f"nuScenes train micro-step (B={bsz}, iter_size {iter_size}, CUDA events): bf16 median "
+        f"{r16['ms']:.3f} ms ({', '.join(f'{t:.3f}' for t in r16['all'])}), peak "
+        f"{r16['peak_gib']:.3f} GiB; float32 median {r32['ms']:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in r32['all'])}), peak {r32['peak_gib']:.3f} GiB; on {smi}")
+
+    # ---- the bf16 gradient against the float32 one -------------------------
+    t1 = time.perf_counter()
+    models, bt = {}, port.to_device(collate(scenes[:1]))
+    for name, cfg in (("bf16", cfg16), ("f32", cfg32)):
+        cfg = copy.deepcopy(cfg)
+        cfg["pose_estimation"]["deterministic_sampling"] = True
+        models[name] = port.build_model(cfg).eval()
+        models[name].load_state_dict(state)
+
+    def grads(name, weights):
+        mdl = models[name]
+        mdl.zero_grad(set_to_none=True)
+        st = fuse_loss(mdl(bt, mode="train"), bt, weights, cfg16["capacity"]["max_instances"])
+        st["loss"].backward()
+        return float(st["loss"].detach()), {
+            n: (p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
+            for n, p in mdl.named_parameters()}
+
+    no_obj = dict(cfg16["loss"], w_obj_loss=0.0)
+    la16, ga16 = grads("bf16", no_obj)
+    la32, ga32 = grads("f32", no_obj)
+    ca, na, wr, wc, wl = bf16_leaf_criterion(ga16, ga32, list(ga32))
+    lb16, gb16 = grads("bf16", cfg16["loss"])
+    lb32, gb32 = grads("f32", cfg16["loss"])
+    _, gb32b = grads("f32", cfg16["loss"])
+    pooled = ("motionhead.", "reconstructor.alignment.motion_embed.",
+              "reconstructor.alignment.geo_embed.", "reconstructor.alignment.pos_embed.")
+    outside = [n for n in gb32 if not n.startswith(pooled)]
+    cb, nb_, wrb, wcb, wlb = bf16_leaf_criterion(gb16, gb32, outside)
+
+    def worst_pooled(ga_, gb_):
+        return max((float((ga_[n] - gb_[n]).double().norm())
+                    / max(float(ga_[n].norm()), float(gb_[n].norm()), 1e-30), n)
+                   for n in gb32 if n.startswith(pooled))
+
+    def cosine(ga_, gb_):
+        a_, b_ = (torch.cat([g[n].double().ravel() for n in gb32]) for g in (ga_, gb_))
+        return float(a_ @ b_ / (a_.norm() * b_.norm()))
+
+    cos_a, cos_b, cos_self = cosine(ga16, ga32), cosine(gb16, gb32), cosine(gb32, gb32b)
+    if cos_a <= 0.99 or cos_b <= 0.95:
+        fail(f"bf16 vs float32 whole-gradient cosine (a) {cos_a:.6f}, (b) {cos_b:.6f}")
+    p16, p32 = worst_pooled(gb16, gb32), worst_pooled(gb32b, gb32)
+    log(f"nuScenes bf16 vs float32 gradient (B=1, eval BN, deterministic keypoints, the same "
+        f"weights and batch): (a) without the TPointNet objective: loss {la16:.6f} vs "
+        f"{la32:.6f}; {ca} leaves within rel-norm {BF16_LEAF_REL} and cosine {BF16_LEAF_COS}, "
+        f"{na} below the noise floor; worst {wl} rel-norm {wr:.3e} cosine {wc:.6f}; whole "
+        f"cosine {cos_a:.6f}. (b) whole FuseLoss: loss {lb16:.6f} vs {lb32:.6f}; {cb} leaves "
+        f"not upstream of the TPointNet's max pools within it, {nb_} below the floor, worst "
+        f"{wlb} rel-norm {wrb:.3e} cosine {wcb:.6f}; whole cosine {cos_b:.6f} (two float32 "
+        f"runs: {cos_self:.8f}); the {len(gb32) - len(outside)} pooled leaves: worst rel-norm "
+        f"{p16[0]:.3e} ({p16[1]}) bf16 vs float32, {p32[0]:.3e} ({p32[1]}) between two float32 "
+        f"runs ({time.perf_counter() - t1:.1f} s)")
+    return {"counts": r16["counts"], "bf16_ms": r16["ms"], "f32_ms": r32["ms"],
+            "bf16_gib": r16["peak_gib"], "f32_gib": r32["peak_gib"]}
+
+
+def nuscenes_cli_train_phase(port) -> None:
+    """`python -m pcaccumulation_tpu_torch.main configs/nuscene.yaml 4 2
+    --misc.mode=train --train.ckpt_backend=pickle --train.max_epoch=2` (one
+    epoch: the loop runs epochs 1 .. max_epoch - 1) on the card over 8
+    train and 1 val synthetic samples of 11 sweeps at 20 Hz in a temporary
+    directory: rc 0, the epoch's checkpoints, and bf16 kernels only (K1-bf16
+    forward and gradient, K2-bf16 forward; no float32 kernel, no K2
+    gradient)."""
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.synthetic import generate_sample
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks, row_shift_blocks_backward
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_backward
+    from pcaccumulation_tpu_torch.main import main as cli_main
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nuscene_train_")
+    cwd = os.getcwd()
+    try:
+        data = os.path.join(tmp, "data")
+        rel = []
+        for i in range(9):
+            os.makedirs(os.path.join(data, f"scene_{i:04d}"))
+            rel.append(f"scene_{i:04d}/sample_00000.npz")
+            np.savez_compressed(os.path.join(data, rel[-1]),
+                                **generate_sample(SEED + 200 + i, n_frames=11, freq=20.0))
+        for split, sel in (("train", rel[:8]), ("val", rel[8:]), ("test", rel[8:])):
+            with open(os.path.join(data, f"{split}_info.txt"), "w") as f:
+                f.write("\n".join(sel) + "\n")
+        os.chdir(tmp)
+        for fn in (seg_pool, seg_pool_backward, row_shift_blocks, row_shift_blocks_backward):
+            fn.launches = fn.launches_bf16 = 0
+        rc = cli_main(["main", os.path.join(repo, "configs", "nuscene.yaml"), "4", "2",
+                       "--misc.mode=train", "--train.ckpt_backend=pickle",
+                       "--train.max_epoch=2", "--misc.exp_name=nuscene_train",
+                       f"--path.dataset_base={data}"])
+        torch.cuda.synchronize()
+        got = {f"{fn.__name__}{sfx}": getattr(fn, "launches" + sfx)
+               for fn in (seg_pool, seg_pool_backward, row_shift_blocks, row_shift_blocks_backward)
+               for sfx in ("", "_bf16")}
+        k1_per = load_config(os.path.join(repo, "configs", "nuscene.yaml"))["pillar_encoder"][
+            "depth"] - 1
+        # 2 train micro-steps of B=4 and 1 val step of B=1
+        want = {"seg_pool": 0, "seg_pool_bf16": 3 * k1_per, "seg_pool_backward": 0,
+                "seg_pool_backward_bf16": 2 * k1_per, "row_shift_blocks": 0,
+                "row_shift_blocks_bf16": 9, "row_shift_blocks_backward": 0,
+                "row_shift_blocks_backward_bf16": 0}
+        run = os.path.join(tmp, "snapshot", "nuscene_train")
+        ckpts = sorted(f for f in os.listdir(run) if f.endswith(".ckpt"))
+        with open(os.path.join(run, "log")) as f:
+            epoch_log = f.read()
+        if rc != 0 or got != want or "model_latest.ckpt" not in ckpts or (
+                "train Epoch: 1" not in epoch_log):
+            fail(f"nuScenes CLI train mode: rc {rc}, launches {got} (want {want}), "
+                 f"checkpoints {ckpts}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"nuScenes CLI (configs/nuscene.yaml 4 2 --misc.mode=train --train.ckpt_backend=pickle "
+        f"--train.max_epoch=2): one epoch of 2 micro-steps and a val step, checkpoints {ckpts}, "
+        f"launches {got} ({time.perf_counter() - t0:.1f} s)")
 
 
 def main() -> None:
@@ -1573,6 +2009,7 @@ def main() -> None:
 
     # ---- 4c. the bf16 kernels of K1 and K2 (and K3) vs plain ----------------
     bf16_rows = bf16_kernel_phase(dev, gen)
+    bf16_rows.update(bf16_grad_phase(dev, gen))
     if only_kernels:
         cfg = load_config()
         k3_phase(dev, gen)
@@ -1703,8 +2140,12 @@ def main() -> None:
     tester_phase(port)
 
     # ---- 6e. the nuScenes preset in bf16: val and test forward, the CLI ------
-    nus_counts, nus_ms = nuscenes_phase(port, smi)
+    nus_counts, nus_ms, nus_state = nuscenes_phase(port, smi)
     nuscenes_cli_phase(port)
+
+    # ---- 6f. the nuScenes preset's bf16 training: micro-steps, gradient, CLI --
+    nus_train = nuscenes_train_phase(port, nus_state, smi)
+    nuscenes_cli_train_phase(port)
 
     # ---- 7. train path: the Trainer's micro-step at full width --------------
     from pcaccumulation_tpu_torch.train.loss import fuse_loss
@@ -1915,6 +2356,11 @@ def main() -> None:
     kernels["seg_pool_bf16"] = dict(bf16_rows["seg_pool_bf16"], launches=nus_counts["K1-bf16"])
     kernels["row_shift_blocks_bf16"] = dict(bf16_rows["row_shift_blocks_bf16"],
                                             launches=nus_counts["K2-bf16"])
+    kernels["seg_pool_backward_bf16"] = dict(bf16_rows["seg_pool_backward_bf16"],
+                                             launches=nus_train["counts"]["K1 bwd-bf16"])
+    kernels["row_shift_blocks_backward_bf16"] = dict(
+        bf16_rows["row_shift_blocks_backward_bf16"],
+        launches=nus_train["counts"]["K2 bwd-bf16"])
     for kern in kernels.values():
         log(f"{kern['name']}: {kern['ms']:.4f} ms (bound {kern['bound_ms']:.4f} ms by "
             f"{kern['bound_by']}; plain {kern['plain_ms']:.4f} ms; library "
@@ -1923,7 +2369,10 @@ def main() -> None:
     log(f"forward_ms {fwd_ms:.3f} test_forward_ms {test_ms:.3f} "
         f"train_micro_step_ms {micro_med:.3f} "
         f"train_update_ms {statistics.median(update_ms):.3f} train_peak_gib {peak_gib:.3f} "
-        + " ".join(f"nuscenes_{k}_ms {v:.3f}" for k, v in nus_ms.items()) + f" on {smi}")
+        + " ".join(f"nuscenes_{k}_ms {v:.3f}" for k, v in nus_ms.items())
+        + f" nuscenes_train_bf16_ms {nus_train['bf16_ms']:.3f} nuscenes_train_f32_ms "
+        f"{nus_train['f32_ms']:.3f} nuscenes_train_bf16_gib {nus_train['bf16_gib']:.3f} "
+        f"nuscenes_train_f32_gib {nus_train['f32_gib']:.3f} on {smi}")
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -103,9 +103,7 @@ def check_supported(cfg: dict) -> None:
     does not have: a device mesh or ZeRO-1 (`parallel`), rematerialisation,
     orbax checkpoints and process workers. The port runs on one card,
     checkpoints with pickle and loads in threads; a value it would ignore is
-    refused instead. `precision.compute_dtype: bfloat16` runs the val and
-    test forward; with `misc.mode: train` it is refused (the bf16 training
-    slice is not yet ported)."""
+    refused instead."""
     par = cfg.get("parallel", {})
     train = cfg.get("train", {})
     refused = [f"parallel.{k}={par[k]!r}"
@@ -120,11 +118,6 @@ def check_supported(cfg: dict) -> None:
     refused += [f"{split}.worker_mode={cfg[split]['worker_mode']!r}"
                 for split in ("train", "val", "test")
                 if cfg.get(split, {}).get("worker_mode", "thread") != "thread"]
-    dtype = cfg.get("precision", {}).get("compute_dtype", "float32")
-    if dtype != "float32" and cfg.get("misc", {}).get("mode") == "train":
-        refused.append(f"precision.compute_dtype={dtype!r} with misc.mode=train (the bf16 "
-                       "training slice, K1's bf16 gradient, is not yet ported; bf16 runs "
-                       "--misc.mode=val and --misc.mode=test)")
     if refused:
         raise NotImplementedError(
             "the PyTorch port does not implement " + ", ".join(refused)

@@ -43,6 +43,8 @@
 // aligned; else one channel, copied into the slab by a plain load and store
 // (cp.async moves 4, 8 or 16 bytes, not 2). The bound halves with the
 // bytes: [288, 288, 352] bf16 is 117 MB in and out, 35 us at 3.35 TB/s.
+// The bf16 gradient is this kernel at sign -1 on the bf16 cotangent: the
+// same bytes and the same bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -201,7 +203,9 @@ extern "C" int row_shift_blocks_forward(const float* img, const float* shifts, f
 }
 
 // The same on bf16 images (img, out bf16; shifts f32): the lerp in float32,
-// rounded to bf16 once at the store.
+// rounded to bf16 once at the store. At sign -1 on a bf16 cotangent it is
+// the bf16 gradient of K2 and K3, as the TPU kernel's VJP is its forward at
+// -shifts on the cotangent's dtype (ops/bilinear.py:481-486).
 extern "C" int row_shift_blocks_forward_bf16(const void* img, const float* shifts, void* out,
                                              long long rows, int w, int ctot, int n_blocks,
                                              float sign, void* stream) {

@@ -1,7 +1,8 @@
 // Segment reduce-broadcast over SORTED segment ids (kernel K1) and the
 // gradient of its max, each as one C entry point of two launches. The
 // forward takes float32 (`segpool_forward`) or bfloat16
-// (`segpool_forward_bf16`) rows; the gradient float32.
+// (`segpool_forward_bf16`) rows, and so does the gradient
+// (`segpool_backward_max`, `segpool_backward_max_bf16`).
 //
 // Replaces the TPU kernels of pcaccumulation_tpu/kernels/segscan.py:
 //   _seg_pool_impl (_scan_block_kernel + _total_block_kernel): for
@@ -16,7 +17,8 @@
 // and write out once (x [90000, 32] f32: 23 MB, 7 us at 3.35 TB/s; x
 // [120000, 32] bf16: 15.8 MB, 4.7 us); the
 // gradient reads x, y, g and ids once and writes once ([360000, 32]: 186 MB,
-// 56 us). The arithmetic is one compare or add per element and payload.
+// 56 us; bf16 [480000, 32], the nuScenes train step's: 125 MB, 37 us). The
+// arithmetic is one compare or add per element and payload.
 //
 // Design. The TPU version carries a (segment id, value) pair across grid
 // steps, which is exact only because the TPU grid runs in order; CUDA
@@ -56,6 +58,17 @@
 // thread's registers). Where C % 4 != 0 or a pointer is not 8-byte aligned,
 // one column per thread.
 //
+// The gradient in bfloat16 (`segpool_backward_max_bf16`, the TPU kernel's
+// `_seg_pool_bwd` on bf16 activations, the one the pillar encoder's
+// backward runs under `precision.compute_dtype: bfloat16`): x, y and g are
+// bf16 rows, widened where they are loaded; the tie mask compares the
+// widened values (exact, so it is bf16's x == y); the sums of g and of the
+// tie mask are float32 partials and float32 scans, the division is float32,
+// and the result is rounded to bf16 once, at the store, as the TPU kernel
+// casts `gs / max(nt, 1)` to x's dtype once. bf16 ties are common (values
+// that differ in float32 round alike), so the tie count is not a corner
+// case here. The loads are the forward's: 8-byte loads of 4 bf16.
+//
 // Fixed order of combination. Every order of addition here is a function
 // of the ids alone: the in-thread scan runs over the rows in order, the
 // carry over the groups in order, a crossing run's partials in an order
@@ -83,11 +96,11 @@ constexpr int TILE = GROUPS * K;          // rows of a tile; the wrapper's TILE_
 constexpr int WHOLE = 1, LINK_L = 2, LINK_R = 4;
 
 struct Args {
-  const void* x;   // float or __nv_bfloat16 (the forward's element type)
-  const float* y;  // gradient only: the forward's output
-  const float* g;  // gradient only: the cotangent
+  const void* x;   // float or __nv_bfloat16: the element type E of every row array
+  const void* y;   // gradient only: the forward's output
+  const void* g;   // gradient only: the cotangent
   const int* ids;
-  void* out;       // x's element type
+  void* out;       // E
   float* first;  // [n_tiles, P, c]
   float* last;   // [n_tiles, P, c]
   int* flags;    // [n_tiles]
@@ -185,12 +198,14 @@ struct Pool {
   }
 };
 
-// The gradient of max: the payload is (g, tie) for VEC columns, summed;
-// the row's own tie bits are kept for the epilogue (bit k * VEC + j). y is
-// the forward's output, one value per segment: where a caller knows that
-// rows row and yrow lie in one segment, tie = (x[row] == y[yrow]) reads y
-// once per run instead of once per row.
-template <int VEC>
+// The gradient of max: the payload is (g, tie) for VEC columns, summed in
+// float32; the row's own tie bits are kept for the epilogue (bit k * VEC +
+// j). y is the forward's output, one value per segment: where a caller
+// knows that rows row and yrow lie in one segment, tie = (x[row] ==
+// y[yrow]) reads y once per run instead of once per row. x, y, g and out
+// have element type E (float or __nv_bfloat16), widened where loaded and
+// rounded to E once at the store.
+template <int VEC, class E>
 struct MaxGrad {
   static constexpr int P = 2;
   static constexpr int V = VEC;
@@ -211,8 +226,8 @@ struct MaxGrad {
   }
   __device__ static unsigned ties(const Args& a, int row, int yrow, int col, int k) {
     float xv[VEC], yv[VEC];
-    load_vec<VEC>(xv, static_cast<const float*>(a.x) + row * a.c + col);
-    load_vec<VEC>(yv, a.y + yrow * a.c + col);
+    load_vec<VEC>(xv, static_cast<const E*>(a.x) + row * a.c + col);
+    load_vec<VEC>(yv, static_cast<const E*>(a.y) + yrow * a.c + col);
     unsigned bits = 0u;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) bits |= (xv[j] == yv[j] ? 1u : 0u) << (k * VEC + j);
@@ -220,7 +235,7 @@ struct MaxGrad {
   }
   __device__ static T load(const Args& a, int row, int yrow, int col, unsigned& bits, int k) {
     T r;
-    load_vec<VEC>(r.v, a.g + row * a.c + col);
+    load_vec<VEC>(r.v, static_cast<const E*>(a.g) + row * a.c + col);
     const unsigned b = ties(a, row, yrow, col, k);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) r.v[VEC + j] = (b >> (k * VEC + j)) & 1u ? 1.0f : 0.0f;
@@ -232,7 +247,7 @@ struct MaxGrad {
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
       o[j] = (bits >> (k * VEC + j)) & 1u ? __fdiv_rn(tot.v[j], fmaxf(tot.v[VEC + j], 1.0f)) : 0.0f;
-    store_vec<VEC>(static_cast<float*>(a.out) + row * a.c + col, o);
+    store_vec<VEC>(static_cast<E*>(a.out) + row * a.c + col, o);
   }
 };
 
@@ -560,6 +575,22 @@ int forward(const void* x, const int* ids, void* out, float* scratch, long long 
   return vec ? launch<Pool<4, false, E>>(a, s) : launch<Pool<1, false, E>>(a, s);
 }
 
+// The gradient of max on rows of element type E: 4 columns a thread where
+// C % 4 == 0 and every row array is aligned to 4 elements, else one.
+template <class E>
+int backward_max(const void* x, const void* y, const void* g, const int* ids, void* out,
+                 float* scratch, long long scratch_floats, int n, int c, void* stream) {
+  if (n <= 0 || c <= 0) return 0;
+  Args a{x, y, g, ids, out, nullptr, nullptr, nullptr, n, c, 0};
+  const int rc = prepare(a, scratch, scratch_floats, 2);
+  if (rc) return rc;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned al = 4 * sizeof(E);
+  const bool vec = c % 4 == 0 && aligned(x, al) && aligned(y, al) && aligned(g, al) &&
+                   aligned(out, al);
+  return vec ? launch<MaxGrad<4, E>>(a, s) : launch<MaxGrad<1, E>>(a, s);
+}
+
 }  // namespace
 
 // The forward. x [n, c] f32 contiguous, ids [n] int32 non-decreasing, out
@@ -586,11 +617,15 @@ extern "C" int segpool_forward_bf16(const void* x, const int* ids, void* out, fl
 extern "C" int segpool_backward_max(const float* x, const float* y, const float* g,
                                     const int* ids, float* out, float* scratch,
                                     long long scratch_floats, int n, int c, void* stream) {
-  if (n <= 0 || c <= 0) return 0;
-  Args a{x, y, g, ids, out, nullptr, nullptr, nullptr, n, c, 0};
-  const int rc = prepare(a, scratch, scratch_floats, 2);
-  if (rc) return rc;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = c % 4 == 0 && aligned(x) && aligned(y) && aligned(g) && aligned(out);
-  return vec ? launch<MaxGrad<4>>(a, s) : launch<MaxGrad<1>>(a, s);
+  return backward_max<float>(x, y, g, ids, out, scratch, scratch_floats, n, c, stream);
+}
+
+// The same on bf16 rows: x, y, g and out [n, c] bf16 contiguous, the
+// scratch float32 as above; g and the tie mask summed in float32, divided
+// in float32 and rounded to bf16 once at the store.
+extern "C" int segpool_backward_max_bf16(const void* x, const void* y, const void* g,
+                                         const int* ids, void* out, float* scratch,
+                                         long long scratch_floats, int n, int c,
+                                         void* stream) {
+  return backward_max<__nv_bfloat16>(x, y, g, ids, out, scratch, scratch_floats, n, c, stream);
 }

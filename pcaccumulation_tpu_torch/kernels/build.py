@@ -33,6 +33,7 @@ SIGNATURES = {
         "segpool_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
         "segpool_forward_bf16": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
         "segpool_backward_max": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+        "segpool_backward_max_bf16": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
     },
     "row_shift": {
         "row_shift_blocks_forward": [_P, _P, _P, _I64, _I32, _I32, _I32, ctypes.c_float, _P],

@@ -28,8 +28,9 @@ Their gradient (`RowShift`) is the JAX package's custom VJP
 (`ops/bilinear.py::_make_row_shift_blocks`, `_row_shift_sample`): the same
 kernel at -shifts for the image, zero for the shifts. That is not the exact
 transpose of the lerp at the row ends, and the port follows JAX, not
-autograd. The gradient takes float32 only: on a bf16 cotangent it raises
-(it comes with the bf16 training slice).
+autograd. A bf16 cotangent goes to the bf16 kernel at -shifts (float32
+lerp, one rounding), counted on `row_shift_blocks_backward.launches_bf16`
+(`row_shift_backward.launches_bf16` for K3).
 """
 
 from __future__ import annotations
@@ -90,29 +91,21 @@ def _shift(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int,
     return out, True
 
 
-def _float32_only(g: torch.Tensor) -> None:
-    if g.dtype == torch.bfloat16:
-        raise NotImplementedError("the gradient of the row shift in bfloat16 is not yet ported "
-                                  "(the bf16 training slice)")
-
-
 def row_shift_blocks_backward(g: torch.Tensor, shifts: torch.Tensor,
                               n_blocks: int) -> torch.Tensor:
     """Gradient of `row_shift_blocks` for the image, given the cotangent g
-    of its output: the same shift at -shifts (one K2 launch on a CUDA
-    tensor, the plain version on a CPU tensor). float32 only."""
-    _float32_only(g)
+    (float32 or bfloat16) of its output: the same shift at -shifts (one K2
+    launch of g's dtype on a CUDA tensor, the plain version on a CPU
+    tensor)."""
     out, launched = _shift(g, shifts, n_blocks, -1.0)
-    row_shift_blocks_backward.launches += launched
+    _count(row_shift_blocks_backward, g, launched)
     return out
 
 
 def row_shift_backward(g: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
-    """Gradient of `row_shift` for the image: the shift at -shifts [R, 1].
-    float32 only."""
-    _float32_only(g)
+    """Gradient of `row_shift` for the image: the shift at -shifts [R, 1]."""
     out, launched = _shift(g, shifts, 1, -1.0)
-    row_shift_backward.launches += launched
+    _count(row_shift_backward, g, launched)
     return out
 
 
@@ -172,7 +165,7 @@ def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> 
     90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
     a CUDA tensor goes to the kernel or raises. The kernel rounds as the
     plain version does (a bf16 output is the float32 result rounded once).
-    Differentiable in a float32 img through `RowShift`.
+    Differentiable in img through `RowShift`, in either dtype.
     """
     _check(img, shifts, n_blocks, "row_shift_blocks")
     return _apply(img, shifts, n_blocks, row_shift_blocks,
@@ -190,7 +183,9 @@ def row_shift(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
 
 row_shift_blocks.launches = 0  # float32 forward launches (one per call that reached the card)
 row_shift_blocks.launches_bf16 = 0  # bf16 forward launches
-row_shift_blocks_backward.launches = 0  # gradient kernel launches
+row_shift_blocks_backward.launches = 0  # float32 gradient launches
+row_shift_blocks_backward.launches_bf16 = 0  # bf16 gradient launches
 row_shift.launches = 0  # K3: float32 forward launches at one shift per row
 row_shift.launches_bf16 = 0
 row_shift_backward.launches = 0
+row_shift_backward.launches_bf16 = 0

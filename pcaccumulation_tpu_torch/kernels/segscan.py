@@ -24,7 +24,13 @@ kernel of the same two-launch shape, `segpool_backward_max`: it reads x, y
 and g once, sums g and the tie mask (x == y) over each segment, and writes
 tie ? sum(g) / max(ties, 1) : 0, the even split of each segment's cotangent
 among its tied maxima, with no pack or [N, C] temporary. For sum the
-gradient is the forward's sum-pool of g.
+gradient is the forward's sum-pool of g. On bf16 rows (the pillar
+encoder's backward under `precision.compute_dtype: bfloat16`) it is
+`segpool_backward_max_bf16`: the sums and the division in float32 and one
+rounding to bf16, as `_seg_pool_bwd` computes them, never a cast of its
+inputs to float32 for the float32 kernel; for sum, the bf16 forward's sum.
+Its launches count on `seg_pool_backward.launches_bf16`, the float32
+kernel's on `seg_pool_backward.launches`.
 """
 
 from __future__ import annotations
@@ -95,26 +101,33 @@ def _pool(x: torch.Tensor, ids: torch.Tensor, op: str) -> tuple[torch.Tensor, bo
 
 
 def _backward_max(x, ids, y, g) -> torch.Tensor:
-    """The fused gradient kernel of max on CUDA tensors (one C call)."""
+    """The fused gradient kernel of max of x's dtype on CUDA tensors (one
+    C call); x, y and g share one dtype."""
     x, y, g, ids = x.contiguous(), y.contiguous(), g.contiguous(), ids.contiguous()
-    _check_kernel_inputs(ids, x, y, g)
+    _check_kernel_inputs(ids, x, dtypes=(torch.float32, torch.bfloat16))
+    _check_kernel_inputs(ids, y, g, dtypes=(x.dtype,))
     n, c = x.shape
-    out = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, c), dtype=x.dtype, device=x.device)
     scratch = _scratch(x, 2)
-    rc = build.load_library("segscan").segpool_backward_max(
-        x.data_ptr(), y.data_ptr(), g.data_ptr(), ids.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), scratch.numel(), n, c, build.stream(x))
+    lib = build.load_library("segscan")
+    entry = (lib.segpool_backward_max_bf16 if x.dtype == torch.bfloat16
+             else lib.segpool_backward_max)
+    rc = entry(x.data_ptr(), y.data_ptr(), g.data_ptr(), ids.data_ptr(), out.data_ptr(),
+               scratch.data_ptr(), scratch.numel(), n, c, build.stream(x))
     build.check(rc, "segscan")
     return out
 
 
 def seg_pool_backward_plain(x, ids, y, g, op: str = "max") -> torch.Tensor:
-    """Plain version of the gradient; see `seg_pool_backward`."""
-    gs = seg_pool_plain(g.float(), ids, "sum")
+    """Plain version of the gradient; see `seg_pool_backward`. The sums and
+    the division in float32 (float64 for a float64 x), the result rounded
+    to x's dtype once, as `_seg_pool_bwd` casts it."""
     if op == "sum":
-        return gs
+        return seg_pool_plain(g, ids, "sum").to(x.dtype)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    gs = seg_pool_plain(g.to(acc), ids, "sum")
     tie = x == y
-    nt = seg_pool_plain(tie.float(), ids, "sum")
+    nt = seg_pool_plain(tie.to(acc), ids, "sum")
     return torch.where(tie, gs / torch.clamp(nt, min=1.0), 0.0).to(x.dtype)
 
 
@@ -126,16 +139,19 @@ def seg_pool_backward(x: torch.Tensor, ids: torch.Tensor, y: torch.Tensor,
     Max: every row that ties its segment's maximum gets the segment's
     cotangent sum divided by the number of tied rows, other rows zero (the
     even split of JAX's segment_max gradient). Sum: the segment's cotangent
-    sum. One C call on a CUDA tensor (the fused gradient kernel for max, the
-    forward kernel's sum for sum); the plain version on a CPU tensor.
+    sum. One C call on a CUDA tensor (the fused gradient kernel of x's
+    dtype for max, the forward kernel's sum for sum), which counts on
+    `seg_pool_backward.launches` (float32) or `.launches_bf16`; the plain
+    version on a CPU tensor. In bf16, x, y and g are bf16 and the result is
+    the float32 sum and division rounded to bf16 once.
     """
-    if torch.bfloat16 in (x.dtype, g.dtype):
-        raise NotImplementedError(
-            "the gradient of seg_pool in bfloat16 is not yet ported (the bf16 training slice)")
     if x.device.type == "cpu":
         return seg_pool_backward_plain(x, ids, y, g, op)
     out = _pool(g, ids, "sum")[0] if op == "sum" else _backward_max(x, ids, y, g)
-    seg_pool_backward.launches += 1
+    if x.dtype == torch.bfloat16:
+        seg_pool_backward.launches_bf16 += 1
+    else:
+        seg_pool_backward.launches += 1
     return out
 
 
@@ -169,7 +185,7 @@ def seg_pool(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch.Tenso
     sorted); a CUDA tensor goes to the kernel of its dtype or raises. Max is
     exact; sum adds in another order than the plain version (float32
     rounding, relative 1e-6 per term; a bf16 sum is rounded once at the
-    end). Differentiable in a float32 x through `SegPool`.
+    end). Differentiable through `SegPool`, in either dtype.
     """
     if op not in ("max", "sum"):
         raise ValueError(f"op must be 'max' or 'sum', got {op!r}")
@@ -186,4 +202,5 @@ def seg_pool(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch.Tenso
 
 seg_pool.launches = 0  # float32 forward kernel launches (one per call that reached the card)
 seg_pool.launches_bf16 = 0  # bf16 forward kernel launches
-seg_pool_backward.launches = 0  # gradient kernel launches (one per backward on the card)
+seg_pool_backward.launches = 0  # float32 gradient launches (one per backward on the card)
+seg_pool_backward.launches_bf16 = 0  # bf16 gradient launches

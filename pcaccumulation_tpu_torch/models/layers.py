@@ -9,8 +9,8 @@ float32 and are cast at use, with the input, to the compute dtype (flax's
 product or convolution is rounded to the compute dtype before its bias is
 added in that dtype (a bias fused into the product would round once, and
 differ from the JAX package in ~30 % of the outputs by an ulp). A BatchNorm
-reduces its statistics and normalises in float32 and rounds its output to
-the compute dtype once (flax's `BatchNorm(dtype=...)`). `SegHead2D`
+with a compute dtype takes one of the JAX package's two forms (see
+`MaskedBatchNorm`). `SegHead2D`
 returns its input's dtype unless built with `keep_compute_dtype=True`. No
 autocast: the casts land where the JAX package's land. `compute_dtype=None`
 is the float32 model.
@@ -131,17 +131,27 @@ class MaskedBatchNorm(nn.Module):
     momentum 0.9) and keep the biased batch variance — torch's own
     BatchNorm keeps the unbiased one, so the port has its own.
 
-    With a compute dtype (flax's `BatchNorm(dtype=...)`) the statistics
-    and the normalisation run in float32, as flax computes them, and the
-    output is rounded to the compute dtype once.
+    With a compute dtype (the 2-D heads' BatchNorm, no mask) it takes the
+    form of the JAX module it stands for; the statistics are float32 sums
+    of the input widened to float32 in both, and the gradient flows through
+    them in train mode:
+    - flax's `BatchNorm(dtype=...)` (`s2d=False`): variance E[x^2] - E[x]^2
+      clipped at 0, normalisation (x - mean) * (rsqrt(var + eps) * scale) +
+      bias in float32, rounded to the compute dtype once;
+    - the JAX package's `S2DBatchNorm` (`s2d=True`, the heads that the JAX
+      model runs in space-to-depth layout): variance E[x^2] - E[x]^2 not
+      clipped, mul = scale / sqrt(var + eps) and add = bias - mean * scale /
+      sqrt(var + eps) rounded to the compute dtype, and x * mul + add in the
+      compute dtype, each operation rounded.
     """
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, s2d: bool = False):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.compute_dtype = compute_dtype
+        self.s2d = s2d
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -149,13 +159,21 @@ class MaskedBatchNorm(nn.Module):
         # kept so reference checkpoints (torch BatchNorm) load as they are
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+            self.num_batches_tracked += 1
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
-        if self.compute_dtype is not None:
-            x = x.float()
         shape = [1] * x.dim()
         shape[1] = -1
+        dims = [d for d in range(x.dim()) if d != 1]
+        if self.compute_dtype is not None:
+            if mask is not None:
+                raise ValueError("a BatchNorm with a compute dtype takes no mask")
+            return self._forward_cast(x, shape, dims)
         if self.training:
-            dims = [d for d in range(x.dim()) if d != 1]
             if mask is None:
                 mean = x.mean(dim=dims)
                 var = ((x - mean.reshape(shape)) ** 2).mean(dim=dims)
@@ -164,18 +182,40 @@ class MaskedBatchNorm(nn.Module):
                 count = torch.clamp(m.sum(), min=1.0)
                 mean = (x * m).sum(dim=dims) / count
                 var = (((x - mean.reshape(shape)) ** 2) * m).sum(dim=dims) / count
-            with torch.no_grad():
-                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
-                self.num_batches_tracked += 1
+            self._update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
-        if self.compute_dtype is not None:  # flax's _normalize, then one rounding
-            mul = torch.rsqrt(var + self.eps) * self.weight
-            y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
-            return y.to(self.compute_dtype)
         y = (x - mean.reshape(shape)) / torch.sqrt(var.reshape(shape) + self.eps)
         return y * self.weight.reshape(shape) + self.bias.reshape(shape)
+
+    def _forward_cast(self, x: torch.Tensor, shape: list, dims: list) -> torch.Tensor:
+        """The compute-dtype forms (see the class docstring)."""
+        cd = self.compute_dtype
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=dims)
+            var = (xf * xf).mean(dim=dims) - mean * mean
+            if not self.s2d:
+                var = torch.clamp(var, min=0.0)
+            self._update_running(mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        if self.s2d:
+            inv = torch.sqrt(var + self.eps)
+            mul = (self.weight / inv).to(cd)
+            add = (self.bias - mean * self.weight / inv).to(cd)
+            # mul and add broadcast per 2x2 sub-position of the NHWC view (the
+            # heads' channels-last maps: no copy), so that their gradients
+            # reduce as the JAX module's do: over each sub-position in cd,
+            # then over the four
+            n, c, h, w = x.shape
+            x6 = x.to(cd).permute(0, 2, 3, 1).reshape(n, h // 2, 2, w // 2, 2, c)
+            per_sub = (1, 1, 2, 1, 2, c)
+            y = x6 * mul.expand(per_sub) + add.expand(per_sub)
+            return y.reshape(n, h, w, c).permute(0, 3, 1, 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(cd)
 
 
 class SegHead1D(nn.Module):
@@ -199,17 +239,20 @@ class SegHead2D(nn.Module):
     The convs run on the NCHW view of the NHWC tensor (channels-last
     memory), so no layout copy is made. With a compute dtype the input is
     cast to it, and the output is cast back to the input's dtype unless
-    `keep_compute_dtype`."""
+    `keep_compute_dtype`. `s2d_bn` gives the BatchNorm the form of the JAX
+    package's `S2DBatchNorm` (the heads it runs in space-to-depth layout;
+    H and W even)."""
 
     def __init__(self, in_channels: int, out_channel: int,
-                 compute_dtype: torch.dtype | None = None, keep_compute_dtype: bool = False):
+                 compute_dtype: torch.dtype | None = None, keep_compute_dtype: bool = False,
+                 s2d_bn: bool = False):
         super().__init__()
         mid = max(in_channels, out_channel)
         self.compute_dtype = compute_dtype
         self.keep_compute_dtype = keep_compute_dtype
         self.seg_head = nn.Sequential(
             Conv2d(in_channels, mid, 3, padding=1, compute_dtype=compute_dtype),
-            MaskedBatchNorm(mid, compute_dtype=compute_dtype), nn.ReLU(),
+            MaskedBatchNorm(mid, compute_dtype=compute_dtype, s2d=s2d_bn), nn.ReLU(),
             Conv2d(mid, out_channel, 3, padding=1, compute_dtype=compute_dtype),
         )
 

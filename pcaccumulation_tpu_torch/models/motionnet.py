@@ -28,8 +28,13 @@ heads (outputs kept in bf16; the FB decision compares the bf16 logits at
 the pillars), the shear warp of the bf16 canvas (K2 in bf16) and the
 STPN's convolutions; the densify runs in float32, the per-point gathers
 read bf16 rows and lerp them in float32, and Sinkhorn, Kabsch, ICP and
-every pose stay float32. Training in bf16 is not ported yet: `mode="train"`
-raises.
+every pose stay float32. In train mode the same casts carry the gradient
+back (K1's bf16 gradient in the pillar encoder), the 2-D heads' BatchNorm
+takes the batch statistics in float32 in the form of the JAX module it
+stands for (`S2DBatchNorm` where the JAX model runs the head in
+space-to-depth layout: the FB head whenever its level-0 s2d is active, the
+ego-feature head when its sparse form is too; flax's BatchNorm otherwise),
+and the parameters and their gradients stay float32.
 
 Each stage runs inside a `torch.profiler.record_function` range named
 `motionnet.<stage>` (the ICP ranges `motionnet.icp_ego` and
@@ -108,9 +113,15 @@ class MotionNet(nn.Module):
         self.unet = UNet(cfg["unet"]["in_channels"], cfg["unet"]["depth"],
                          cfg["unet"]["start_filts"], compute_dtype=cd, keep_compute_dtype=True)
         cf = cfg["unet"]["in_channels"]
-        self.semseg_head = SegHead2D(cf, 2, compute_dtype=cd, keep_compute_dtype=True)
+        # the JAX model's level-0 space-to-depth (the same function) decides
+        # which BatchNorm form its heads run in bf16
+        s2d = (cfg["unet"].get("s2d_level0", True) and cfg["unet"]["depth"] > 1
+               and self.grid_hw[0] % 2 == 0 and self.grid_hw[1] % 2 == 0)
+        self.semseg_head = SegHead2D(cf, 2, compute_dtype=cd, keep_compute_dtype=True,
+                                     s2d_bn=s2d)
         self.ego_feats_head = SegHead2D(cf, pose["feats_dim"], compute_dtype=cd,
-                                        keep_compute_dtype=True)
+                                        keep_compute_dtype=True,
+                                        s2d_bn=s2d and pose.get("sparse_eval", True))
         self.ego_motion_head = EgoMotionHead(
             n_kpts=pose["n_kpts"], sinkhorn_iter=pose["sinkhorn_iter"],
             slack=pose["add_slack"], n_sweeps=vg["n_sweeps"], freq=cfg["data"]["freq"],
@@ -137,10 +148,6 @@ class MotionNet(nn.Module):
         instance labels to reconstruct instead of the clustering's."""
         if mode not in ("train", "val", "test"):
             raise ValueError(f"mode={mode!r}")
-        if mode == "train" and self.compute_dtype is not None:
-            raise NotImplementedError(
-                "compute_dtype=bfloat16 in train mode: the bf16 training slice (K1's bf16 "
-                "gradient) is not yet ported; bf16 runs the val and test forward")
         points = batch["points"].float()                  # [B, N, 3]
         time_idx = batch["time_idx"]                      # [B, N]
         point_valid = batch["point_valid"]                # [B, N]

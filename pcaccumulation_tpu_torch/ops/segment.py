@@ -41,7 +41,9 @@ class _SegmentMax(torch.autograd.Function):
     (`ops/segment.py::_segment_max_core`): each row of x equal to its
     segment's max gets the segment's cotangent divided by the number of
     such rows. The sentinel start value is no candidate, as in JAX's
-    segment_max, where `scatter_reduce`'s own gradient would count it."""
+    segment_max, where `scatter_reduce`'s own gradient would count it. The
+    tie count and the share are float32 for a bf16 x, and the result is
+    rounded to x's dtype once, as the JAX package computes them."""
 
     @staticmethod
     def forward(ctx, x, idx, num_rows):
@@ -56,9 +58,11 @@ class _SegmentMax(torch.autograd.Function):
         x, idx, out = ctx.saved_tensors
         flat = idx.reshape(-1)
         winner = x == out[flat]
-        nties = torch.zeros_like(out).index_add_(0, flat, winner.to(out.dtype))
-        share = g / torch.clamp(nties, min=1.0)
-        return torch.where(winner, share[flat], 0.0), None, None
+        acc = torch.promote_types(x.dtype, torch.float32)
+        nties = torch.zeros(out.shape, dtype=acc, device=out.device).index_add_(
+            0, flat, winner.to(acc))
+        share = g.to(acc) / torch.clamp(nties, min=1.0)
+        return torch.where(winner, share[flat], 0.0).to(x.dtype), None, None
 
 
 def masked_segment_max(data, segment_ids, valid, num_segments: int,

@@ -1,10 +1,12 @@
 """Where the val forward's, the test forward's and the training
 micro-step's time goes on the card.
 
-    python -m pcaccumulation_tpu_torch.profile_forward [--train | --test]
+    python -m pcaccumulation_tpu_torch.profile_forward [--train | --test] [config.yaml [--a.b=v ...]]
 
-Builds the default config's MotionNet (configs/default.yaml) at full width
-with seeded random weights on synthetic scenes at the config's capacities,
+Builds the MotionNet of the given config (default: configs/default.yaml;
+e.g. `--train configs/nuscene.yaml --train.ckpt_backend=pickle` for the
+nuScenes preset's bf16 micro-step) at full width with seeded random
+weights on synthetic scenes at the config's capacities (`default_scenes`),
 warms it up, then measures:
 - the forward's (with --train: the micro-step's) median time on the host
   clock, synchronised; --test times the test-mode forward (clustering,
@@ -47,18 +49,22 @@ NESTED = ("icp_ego", "icp_instance")  # ranges inside the ego and reconstruction
 
 
 def default_scenes(cfg: dict, n: int) -> list[dict]:
-    """n synthetic samples at the config's capacities (seeds 0..n-1): 40
-    static clusters and 6 moving objects over the config's sweeps, enough
-    points to fill `max_points`."""
+    """n synthetic samples at the config's capacities (seeds 0..n-1), at the
+    config's sweeps and rate, with enough points to fill `max_points`: 40
+    static clusters and 6 moving objects at the default config's 5 sweeps;
+    at more sweeps (the nuScenes preset's 11 at 20 Hz) 32 static clusters
+    and 6 moving objects of fewer points per sweep (~10,700 points and
+    ~3,300 pillars each), so that every sweep fits the pillar capacity."""
     from pcaccumulation_tpu_torch.data.dataset import prep_sample
     from pcaccumulation_tpu_torch.data.synthetic import generate_sample
 
-    return [
-        prep_sample(generate_sample(seed=s, n_frames=cfg["voxel_generator"]["n_sweeps"],
-                                    n_static_clusters=40, n_dynamic=6, pts_per_cluster=900,
-                                    pts_per_object=500), cfg)
-        for s in range(n)
-    ]
+    t = cfg["voxel_generator"]["n_sweeps"]
+    dense = t <= 5
+    kw = dict(n_static_clusters=40 if dense else 32, n_dynamic=6,
+              pts_per_cluster=900 if dense else 400, pts_per_object=500 if dense else 230)
+    if not dense:
+        kw["freq"] = cfg["data"]["freq"]
+    return [prep_sample(generate_sample(seed=s, n_frames=t, **kw), cfg) for s in range(n)]
 
 
 def shift_to_share(bias: torch.Tensor, margins: torch.Tensor, share: float) -> float:
@@ -268,7 +274,8 @@ def test_mode_config(cfg: dict, icp_max_iter: int = 50) -> dict:
     return cfg
 
 
-def profile_val(port, cfg, smi: str, mode: str = "val") -> None:
+def profile_val(port, cfg, smi: str, mode: str = "val",
+                name: str = "configs/default.yaml") -> None:
     from pcaccumulation_tpu_torch.data.loader import collate
 
     cfg["pose_estimation"]["deterministic_sampling"] = True
@@ -290,7 +297,7 @@ def profile_val(port, cfg, smi: str, mode: str = "val") -> None:
         summary = _profile(run, ITERS)
     stage_busy, stage_launches = summary["stage_busy"], summary["stage_launches"]
 
-    print(f"{mode} forward (B=1, default config): median {fwd_ms:.3f} ms of {ITERS} "
+    print(f"{mode} forward (B=1, {name}): median {fwd_ms:.3f} ms of {ITERS} "
           f"on {smi}")
     print("per stage and forward: device ms between the stage's CUDA events (median), "
           "kernel-busy ms and kernel launches (profiled):")
@@ -310,7 +317,7 @@ def profile_val(port, cfg, smi: str, mode: str = "val") -> None:
     }), flush=True)
 
 
-def profile_train(port, cfg, smi: str) -> None:
+def profile_train(port, cfg, smi: str, name: str = "configs/default.yaml") -> None:
     import tempfile
 
     from pcaccumulation_tpu_torch.data.loader import collate
@@ -330,7 +337,9 @@ def profile_train(port, cfg, smi: str) -> None:
 
         for i in range(3):
             run(i)
+        torch.cuda.reset_peak_memory_stats()
         host_ms = _host_ms(run, ITERS)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
         # the Trainer's step written out, with events between its parts
         parts = collections.defaultdict(list)
@@ -368,8 +377,9 @@ def profile_train(port, cfg, smi: str) -> None:
         summary = _profile(run, ITERS)
     part_ms = {k: statistics.median(v) for k, v in parts.items()}
     step_ms = statistics.median(host_ms)
-    print(f"train micro-step (B={bsz}, iter_size {cfg['train']['iter_size']}, default config): "
-          f"median {step_ms:.3f} ms of {ITERS} on {smi}")
+    print(f"train micro-step (B={bsz}, iter_size {cfg['train']['iter_size']}, "
+          f"{name}, compute dtype {cfg['precision']['compute_dtype']}): median "
+          f"{step_ms:.3f} ms of {ITERS}; peak memory {peak_gib:.3f} GiB; on {smi}")
     print("parts of the micro-step, device ms between CUDA events (median): " + ", ".join(
         f"{k} {part_ms[k]:.3f}" for k in ("forward", "loss", "backward", "optimizer")))
     print("per stage: forward device ms (stage events) and backward device ms (saved-tensor "
@@ -379,7 +389,8 @@ def profile_train(port, cfg, smi: str) -> None:
     print(f"  {'loss':16s} {part_ms['loss']:9.3f} {part_ms.get('bwd.loss', 0.0):9.3f}")
     _print_kernels(summary, ITERS, "step")
     print(json.dumps({
-        "card": smi, "train_step_ms": step_ms, "train_step_ms_all": host_ms,
+        "card": smi, "config": name, "train_step_ms": step_ms,
+        "train_step_ms_all": host_ms, "peak_gib": peak_gib,
         "part_ms": part_ms, "stage_fwd_ms": stages,
         **_summary_json(summary, ITERS, "step"),
     }), flush=True)
@@ -399,12 +410,20 @@ def main(argv: list[str]) -> None:
         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
     build.build_all()
-    if "--train" in argv[1:]:
-        profile_train(port, load_config(), smi)
-    elif "--test" in argv[1:]:
-        profile_val(port, test_mode_config(load_config()), smi, mode="test")
+    args = argv[1:]
+    modes = [a for a in args if a in ("--train", "--test")]
+    paths = [a for a in args if a.endswith(".yaml")]
+    overrides = [a for a in args if a not in modes and a not in paths]
+    if len(modes) > 1 or len(paths) > 1:
+        raise SystemExit(__doc__)
+    cfg = load_config(paths[0] if paths else None, overrides)
+    name = paths[0] if paths else "configs/default.yaml"
+    if "--train" in modes:
+        profile_train(port, cfg, smi, name)
+    elif "--test" in modes:
+        profile_val(port, test_mode_config(cfg), smi, mode="test", name=name)
     else:
-        profile_val(port, load_config(), smi)
+        profile_val(port, cfg, smi, name=name)
 
 
 if __name__ == "__main__":

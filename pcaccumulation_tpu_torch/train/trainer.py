@@ -218,8 +218,10 @@ class Trainer:
     def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """One micro-step: forward in train mode (batch statistics, running
         statistics updated), FuseLoss, backward, and the optimizer's
-        accumulate-or-update. batch: tensors on the device. A bf16 model
-        raises NotImplementedError (MotionNet refuses train mode in bf16)."""
+        accumulate-or-update. batch: tensors on the device. Under
+        `precision.compute_dtype: bfloat16` the model computes in bf16 where
+        the JAX package does; its parameters, their gradients and the
+        optimizer's state stay float32."""
         self.model.train()
         results = self.model(batch, mode="train", generator=generator)
         stats = fuse_loss(results, batch, self.cfg["loss"],
@@ -297,7 +299,7 @@ class Trainer:
 
     # ------------------------------------------------------------------ api
     def train(self):
-        # the training loop's own check (a bf16 config is refused here)
+        # the training loop's own check
         check_supported(dict(self.cfg, misc=dict(self.cfg["misc"], mode="train")))
         for epoch in range(self.start_epoch, self.max_epoch):
             self.logger.write(f"epoch {epoch} lr {self.current_lr():.3e}\n")

@@ -4,7 +4,9 @@ CPU: the port's plain versions against the JAX package's Pallas kernels run
 in interpret mode and against its references, on the same numpy inputs.
 CUDA (marked `cuda`, skipped without a card): each kernel and its gradient
 against their plain versions on the card, and the bf16 kernels of K1 and K2
-against theirs (the CPU's bf16 tests are in tests/test_torch_precision.py). The CUDA tests import no JAX, so on a machine without
+and their bf16 gradients against theirs (the CPU's bf16 tests are in
+tests/test_torch_precision.py and tests/test_torch_train_bf16.py). The CUDA
+tests import no JAX, so on a machine without
 it they run with
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -433,3 +435,59 @@ def test_row_shift_bf16_kernel_on_misaligned_image(cuda):
     got = row_shift_blocks(it, st, 5)
     assert bool(((got.float() - want.float()).abs()
                  <= _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,c", [(name, 32) for name in K1_EDGES]
+                         + [(name, 9) for name in ("n=515", "on_tile_edges", "one_run")])
+def test_seg_pool_bf16_gradient_kernel_at_tile_edges(cuda, name, c):
+    """The bf16 gradient kernel of max (one launch on
+    `seg_pool_backward.launches_bf16`, none on the float32 count) at the
+    tile edges, on bf16 rows with forced ties: within 1 bf16 ulp of the
+    plain version's share (both sum g and the tie mask in float32 and
+    round the division once; their float32 orders differ by up to 1e-5 of
+    the segment's sum of |g| over its tie count), zero off the tie set,
+    two calls torch.equal, and through SegPool's backward the same bits."""
+    x, ids, g = _k1_edge_case(name, c)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    gt = torch.from_numpy(g).to(cuda).to(torch.bfloat16)
+    it = torch.from_numpy(ids).to(cuda)
+    y = seg_pool(xt, it, "max")
+    before = seg_pool_backward.launches, seg_pool_backward.launches_bf16
+    b1, b2 = seg_pool_backward(xt, it, y, gt), seg_pool_backward(xt, it, y, gt)
+    assert (seg_pool_backward.launches, seg_pool_backward.launches_bf16) == (before[0],
+                                                                             before[1] + 2)
+    assert b1.dtype == torch.bfloat16 and torch.equal(b1, b2)
+    want = seg_pool_backward_plain(xt, it, y, gt)
+    tie = xt == y
+    nt = seg_pool_plain(tie.float(), it, "sum").clamp(min=1.0)
+    tol = (_bf16_ulp(torch.maximum(want.float().abs(), b1.float().abs()))
+           + 1e-5 * seg_pool_plain(gt.float().abs(), it, "sum") / nt)
+    assert bool(((b1.float() - want.float()).abs() <= tol).all())
+    assert bool((b1[~tie] == 0).all())
+    xg = xt.clone().requires_grad_(True)
+    seg_pool(xg, it, "max").backward(gt)
+    assert torch.equal(xg.grad, b1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,c", [(11, 32), (5, 9)])
+def test_row_shift_bf16_gradient_kernel_matches_plain(cuda, nb, c):
+    """The bf16 gradient (the bf16 kernel at -shifts, one launch on
+    `row_shift_blocks_backward.launches_bf16`) against the plain version at
+    -shifts, within 1 bf16 ulp; through RowShift's backward the same bits."""
+    g, shifts = _row_shift_case(6, nb, r=288, w=288, c=c)
+    gt = torch.from_numpy(g).to(cuda).to(torch.bfloat16)
+    st = torch.from_numpy(shifts).to(cuda)
+    before = row_shift_blocks_backward.launches, row_shift_blocks_backward.launches_bf16
+    got = row_shift_blocks_backward(gt, st, nb)
+    assert (row_shift_blocks_backward.launches,
+            row_shift_blocks_backward.launches_bf16) == (before[0], before[1] + 1)
+    k = torch.floor(-st)
+    want = row_shift_blocks_plain(gt, k.clamp(-288, 288).to(torch.int32), (-st - k), nb)
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs()
+                 <= _bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))).all())
+    img = torch.zeros_like(gt).requires_grad_(True)
+    row_shift_blocks(img, st, nb).backward(gt)
+    assert torch.equal(img.grad, got)

@@ -14,7 +14,9 @@ val and test forward) against the JAX package in bfloat16, on the CPU.
 - The composed val and test forward: the port in bf16 against the JAX
   package in bf16 and against the port in float32, by the criteria of
   tests/test_precision.py.
-- The refusals: bf16 in train mode, and the kernels' gradients on bf16.
+bf16 training (the kernels' bf16 gradients, the train-mode BatchNorm
+forms, the composed train step, the Trainer, the CLI) is held in
+tests/test_torch_train_bf16.py.
 
 bf16 values cross between the frameworks as float32 arrays (exact).
 """
@@ -42,13 +44,8 @@ from pcaccumulation_tpu.models.tpointnet import AlignNet as JAlign
 from pcaccumulation_tpu.models.unet import UNet as JUNet
 from pcaccumulation_tpu.ops.bilinear import _row_shift_blocks_pallas
 from pcaccumulation_tpu_torch import build_model, to_device
-from pcaccumulation_tpu_torch.config import check_supported
-from pcaccumulation_tpu_torch.kernels.row_shift import (
-    row_shift_blocks,
-    row_shift_blocks_backward,
-    row_shift_blocks_plain,
-)
-from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_backward, seg_pool_plain
+from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks, row_shift_blocks_plain
+from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_plain
 from pcaccumulation_tpu_torch.models import layers as tl
 from pcaccumulation_tpu_torch.utils.weights import state_dict_from_jax
 from test_torch_motionnet import place_fb_threshold, random_variables
@@ -151,22 +148,6 @@ def test_k2_bf16_plain_matches_pallas(nb, c):
     want32 = row_shift_blocks_plain(xt.float(), T(ki), T(f), nb)
     np.testing.assert_array_equal(got, to_np(want32.to(BF16)))
     np.testing.assert_array_equal(got[..., :c], to_np(xt)[..., :c])  # zero shift
-
-
-def test_kernel_gradients_refuse_bf16():
-    """The bf16 gradients are the training slice's: SegPool's backward and
-    the row shift's raise on bf16 instead of computing in float32."""
-    x = torch.randn(20, 8).to(BF16).requires_grad_(True)
-    ids = torch.arange(20, dtype=torch.int32) // 3
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        seg_pool(x, ids, "max").sum().backward()
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        seg_pool_backward(x.detach(), ids, x.detach(), x.detach())
-    img = torch.randn(4, 6, 8).to(BF16).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        row_shift_blocks(img, torch.zeros(4, 2), 2).sum().backward()
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        row_shift_blocks_backward(img.detach(), torch.zeros(4, 2), 2)
 
 
 # ------------------------------------------------------------ the model
@@ -474,31 +455,6 @@ def test_composed_bf16_forward_matches_jax_and_f32(mode, record_property):
     assert np.abs(p16["fb_seg_est"] - res["f32"]["fb_seg_est"]).max() > 0
     # the pose path ran: frames 1.. are not the identity
     assert np.abs(p16["ego_motion_est"][:, 1:, :3, 3]).max() > 1e-2
-
-
-def test_bf16_train_mode_refused(net, tmp_path, monkeypatch):
-    """compute_dtype bfloat16 in train mode raises NotImplementedError that
-    names the missing slice: MotionNet(mode="train"), config.check_supported
-    with --misc.mode=train, the Trainer's step, and the CLI."""
-    from pcaccumulation_tpu_torch.main import main
-    from pcaccumulation_tpu_torch.train.trainer import Trainer
-
-    cfg, batch, _, _, models = net
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        models["bf16"](to_device(batch, "cpu"), mode="train")
-    train_cfg = dict(cfg, misc=dict(cfg["misc"], mode="train"),
-                     train=dict(cfg["train"], ckpt_backend="pickle"))
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        check_supported(train_cfg)
-    check_supported(dict(train_cfg, misc=dict(cfg["misc"], mode="val")))
-    trainer = Trainer(dict(train_cfg, misc=dict(cfg["misc"], mode="val")), models["bf16"], {},
-                      save_dir=str(tmp_path / "run"), device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        trainer.train_step(to_device(batch, "cpu"))
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="bf16 training slice"):
-        main(["main", os.path.join(REPO, "configs", "nuscene.yaml"), "1", "1",
-              "--misc.mode=train", "--misc.device=cpu", "--train.ckpt_backend=pickle"])
 
 
 def test_cli_nuscene_bf16_test_mode_on_cpu(tmp_path, monkeypatch):
