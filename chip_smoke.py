@@ -46,7 +46,17 @@ the ego head sees background:
   gradient, no float32 K1 or K2), timed beside the float32 micro-step with
   peak memory; the bf16 gradient held against the float32 one per leaf
   (`bf16_leaf_criterion`); the CLI's train mode on the preset for one
-  epoch, with its checkpoints.
+  epoch, with its checkpoints;
+- serving (`serving_phase`), on the nuScenes preset in bf16 (the nuScenes
+  phase's weights) and on the default config in float32 (the main path's
+  weights): `Predictor.predict` against a direct `MotionNet(mode="test")`
+  call on the same batch (launch counts: K1 2 and K2 3 per predict, in the
+  config's dtype, nothing else), timed on the host clock and the step on
+  CUDA events; `predict_stream` over 8 scans against 8 `predict` calls, the
+  serial and streamed rates in sequences per second and the H2D bytes per
+  call; `export` on the card and `ExportedPredictor` on the artifact
+  (labels equal, floats within 1e-5, the same launch counts); the tracker
+  over the streamed outputs.
 Any failure exits non-zero. The last two lines of stdout are the `kernels`
 JSON line and the result line `{"ok": true, "device": {...}}`. Without a
 CUDA device it exits 1 and prints no result. With `--only kernels` it stops
@@ -1924,6 +1934,225 @@ def nuscenes_cli_train_phase(port) -> None:
         f"launches {got} ({time.perf_counter() - t0:.1f} s)")
 
 
+SERVE_LABELS = ("mos", "fb", "inst_labels", "time_idx", "points")
+SERVE_FLOATS = ("rec_points", "flow", "offset", "ego_motion", "transformed_points")
+
+
+def kernel_counts() -> dict:
+    """Every kernel's launch count, per dtype (after a synchronise)."""
+    from pcaccumulation_tpu_torch.kernels.chamfer import nn
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
+
+    torch.cuda.synchronize()
+    return {"K1": seg_pool.launches, "K1-bf16": seg_pool.launches_bf16,
+            "K2": row_shift_blocks.launches, "K2-bf16": row_shift_blocks.launches_bf16,
+            "K3": row_shift.launches, "K3-bf16": row_shift.launches_bf16, "K4": nn.launches}
+
+
+def zero_kernel_counts() -> None:
+    from pcaccumulation_tpu_torch.kernels.chamfer import nn
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool
+
+    seg_pool.launches = seg_pool.launches_bf16 = 0
+    row_shift_blocks.launches = row_shift_blocks.launches_bf16 = 0
+    row_shift.launches = row_shift.launches_bf16 = nn.launches = 0
+
+
+def serve_diff(got: dict, want: dict) -> tuple[dict, float]:
+    """Between two served outputs: ({key among SERVE_LABELS: elements that
+    differ}, only for keys that differ; the largest absolute difference of
+    SERVE_FLOATS, inf if a shape differs)."""
+    labels = {k: int((got[k] != want[k]).sum()) if got[k].shape == want[k].shape
+              else f"shape {got[k].shape} != {want[k].shape}"
+              for k in SERVE_LABELS if not np.array_equal(got[k], want[k])}
+    floats = max(float(np.abs(got[k] - want[k]).max(initial=0.0))
+                 if got[k].shape == want[k].shape else float("inf") for k in SERVE_FLOATS)
+    return labels, floats
+
+
+def output_spread(a: dict, b: dict) -> dict:
+    """{key: (elements that differ, largest absolute difference)} between two
+    forwards' tensor outputs, for the keys that differ."""
+    out = {}
+    for k, x in a.items():
+        if torch.is_tensor(x) and not torch.equal(x, b[k]):
+            d = (x.double() - b[k].double()).abs()
+            out[k] = (int((d > 0).sum()), float(d.max()))
+    return out
+
+
+def serving_phase(port, name: str, cfg: dict, state: dict, n_scans: int, smi: str,
+                  export: bool) -> dict:
+    """The serving path on one config, on the card (`serve.py`): a
+    Predictor on `state`, the random keypoint draw of its seed:
+    - `predict` on the first scan against a direct `MotionNet(mode="test")`
+      call on the same device batch and scores (the labels equal, the
+      floats within 1e-5), counts zeroed before `predict` and read after;
+    - `predict` timed on the host clock (raw scan to numpy result) and the
+      step alone on CUDA events; `predict` over `n_scans` scans back to back
+      (serial) and `predict_stream` over them (streamed), in sequences per
+      second, the stream held against the serial results;
+    - with `export`: `export` on the card, `ExportedPredictor` on the
+      artifact: labels equal to the live Predictor's, floats within 1e-5,
+      the same launch counts;
+    - the tracker over the streamed outputs.
+    Returns the phase's numbers."""
+    from pcaccumulation_tpu_torch.profile_forward import default_samples
+    from pcaccumulation_tpu_torch.serve import ExportedPredictor, Predictor
+    from pcaccumulation_tpu_torch.track import ClusterTracker, centroids_from_labels
+
+    t0 = time.perf_counter()
+    scans = [(s["raw_points"], s["time_indice"])
+             for s in default_samples(cfg, n_scans, first=SEED + 300)]
+    pred = Predictor(cfg, state_dict=state)
+    k1_per = cfg["pillar_encoder"]["depth"] - 1
+    bf16 = cfg.get("precision", {}).get("compute_dtype") == "bfloat16"
+    want_counts = {k: 0 for k in kernel_counts()}
+    want_counts["K1-bf16" if bf16 else "K1"] = k1_per
+    want_counts["K2-bf16" if bf16 else "K2"] = 3
+    problems = []
+
+    # ---- predict against the direct test-mode forward, launches counted ----
+    pred.predict(*scans[0])  # warm-up
+    zero_kernel_counts()
+    first = pred.predict(*scans[0])
+    counts = kernel_counts()
+    if counts != want_counts:
+        problems.append(f"predict launched {counts}, want {want_counts}")
+    batch = pred._prep(*scans[0])
+    dbatch = pred._to_device(batch)
+    h2d_bytes = pred.h2d_bytes
+    with torch.inference_mode():
+        r = pred.model(dbatch, mode="test", kpt_scores=pred._scores)
+        spread = output_spread(r, pred.model(dbatch, mode="test", kpt_scores=pred._scores))
+    if spread:
+        problems.append(f"two direct forwards on one batch differ: {spread}")
+    valid = batch["point_valid"][0]
+    direct = {
+        "rec_points": r["rec_est"][0].cpu().numpy()[valid],
+        "offset": r["offset_est"][0].cpu().numpy()[valid],
+        "ego_motion": r["ego_motion_est"][0].cpu().numpy(),
+        "mos": torch.argmax(r["mos_est"], -1)[0].cpu().numpy()[valid].astype(np.int32),
+        "fb": r["fb_est_per_points"][0].cpu().numpy()[valid].astype(np.int32),
+        "inst_labels": r["inst_labels_est"][0].cpu().numpy()[valid].astype(np.int32),
+        "time_idx": batch["time_idx"][0][valid], "points": batch["points"][0][valid],
+    }
+    direct["flow"] = direct["rec_points"] - direct["points"]
+    # the host rebuilds transformed_points from points and ego_motion; held
+    # against the forward's own at float32 rounding of coordinates <= 50 m
+    d_tp = float(np.abs(first["transformed_points"]
+                        - r["transformed_points"][0].cpu().numpy()[valid]).max())
+    direct["transformed_points"] = first["transformed_points"]
+    labels, d_direct = serve_diff(first, direct)
+    if labels or d_direct > 1e-5 or d_tp > 1e-4:
+        problems.append(f"predict vs the direct forward: labels differ {labels}, floats "
+                        f"{d_direct:.3e} (tol 1e-5), transformed_points rebuilt on the host "
+                        f"{d_tp:.3e} (tol 1e-4)")
+    n_inst = len(np.unique(first["inst_labels"])) - 1
+
+    # ---- timing: predict on the host clock, the step on CUDA events ----
+    host_ms, dev_ms = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pred.predict(*scans[i % n_scans])
+        host_ms.append((time.perf_counter() - t1) * 1e3)
+    with torch.inference_mode():
+        for i in range(5):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            pred._run_step(dbatch)
+            end.record()
+            dev_ms.append(sync_ms(start, end))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    serial = [pred.predict(*s) for s in scans]
+    serial_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    streamed = list(pred.predict_stream(iter(scans), prefetch=2, depth=2))
+    stream_s = time.perf_counter() - t1
+    if len(streamed) != n_scans:
+        problems.append(f"predict_stream gave {len(streamed)} results for {n_scans} scans")
+    d_stream = 0.0
+    for i, (a, b) in enumerate(zip(streamed, serial)):
+        labels, d = serve_diff(a, b)
+        d_stream = max(d_stream, d)
+        if labels or d > 1e-5:
+            problems.append(f"predict_stream item {i} vs predict: labels differ {labels}, "
+                            f"floats {d:.3e}")
+
+    # ---- export on the card, the artifact served ----
+    res = {}
+    if export:
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+        try:
+            t1 = time.perf_counter()
+            path = os.path.join(tmp, f"{name}.pt2")
+            pred.export(path)
+            export_s = time.perf_counter() - t1
+            served = ExportedPredictor(path)
+            size_mib = os.path.getsize(path) / 2 ** 20
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        served.predict(*scans[0])  # warm-up
+        zero_kernel_counts()
+        got = served.predict(*scans[0])
+        x_counts = kernel_counts()
+        if x_counts != want_counts:
+            problems.append(f"the exported program launched {x_counts}, want {want_counts}")
+        labels, d_export = serve_diff(got, first)
+        if labels or d_export > 1e-5:
+            problems.append(f"ExportedPredictor vs Predictor: labels differ {labels}, floats "
+                            f"{d_export:.3e} (tol 1e-5)")
+        x_ms = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            served.predict(*scans[i % n_scans])
+            x_ms.append((time.perf_counter() - t1) * 1e3)
+        res["exported_predict_ms"] = statistics.median(x_ms)
+        x_note = (f"export {export_s:.1f} s, artifact {size_mib:.1f} MiB; the exported program "
+                  f"launched {x_counts}; exported vs live {d_export:.3e}; exported predict "
+                  f"(host clock) {', '.join(f'{t:.3f}' for t in x_ms)} ms")
+    else:
+        x_note = "not exported"
+
+    # ---- the tracker over the streamed outputs ----
+    tracker = ClusterTracker()
+    t_frames = pred.n_frames
+    for out in streamed:
+        obs, infos = centroids_from_labels(out["points"], out["time_idx"], out["inst_labels"],
+                                           t_frames)
+        for t in range(t_frames):
+            tracker.update(obs[t], infos[t])
+    tracks = tracker.flush()
+    n_conf = sum(t["confirmed"] for t in tracks)
+
+    res.update({
+        "predict_ms": statistics.median(host_ms), "step_ms": statistics.median(dev_ms),
+        "serial_seq_s": n_scans / serial_s, "stream_seq_s": n_scans / stream_s,
+        "h2d_bytes": h2d_bytes,
+    })
+    log(f"serving {name}: {n_scans} scans of {[int(len(s[0])) for s in scans]} raw points; "
+        f"predict launched {counts} (want {want_counts}); instances in scan 0: {n_inst}; "
+        f"predict vs direct forward: floats max abs diff {d_direct:.3e}, transformed_points "
+        f"rebuilt on the host {d_tp:.3e}; stream vs serial {d_stream:.3e}; "
+        f"predict (host clock, raw scan to numpy) median {res['predict_ms']:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in host_ms)}); step (CUDA events) median "
+        f"{res['step_ms']:.3f} ms ({', '.join(f'{t:.3f}' for t in dev_ms)}); serial "
+        f"{res['serial_seq_s']:.3f} sequences/s, predict_stream (depth 2) "
+        f"{res['stream_seq_s']:.3f} sequences/s; H2D {h2d_bytes} bytes per predict; {x_note}; "
+        f"tracker over the stream: {len(tracks)} tracks, "
+        f"{n_conf} confirmed; on {smi} ({time.perf_counter() - t0:.1f} s)")
+    if problems:
+        fail(f"serving {name}: " + "; ".join(problems))
+    return res
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args not in ([], ["--only", "kernels"]):
@@ -2146,6 +2375,13 @@ def main() -> None:
     # ---- 6f. the nuScenes preset's bf16 training: micro-steps, gradient, CLI --
     nus_train = nuscenes_train_phase(port, nus_state, smi)
     nuscenes_cli_train_phase(port)
+
+    # ---- 6g. serving: Predictor, predict_stream, export, the tracker ---------
+    cfg_s = load_config("configs/nuscene.yaml", ["--train.ckpt_backend=pickle"])
+    serve_ms = {"nuscenes_bf16": serving_phase(port, "nuscenes_bf16", cfg_s, nus_state, 8, smi,
+                                               export=True),
+                "default_f32": serving_phase(port, "default_f32", load_config(),
+                                             model.state_dict(), 8, smi, export=False)}
 
     # ---- 7. train path: the Trainer's micro-step at full width --------------
     from pcaccumulation_tpu_torch.train.loss import fuse_loss
@@ -2372,7 +2608,9 @@ def main() -> None:
         + " ".join(f"nuscenes_{k}_ms {v:.3f}" for k, v in nus_ms.items())
         + f" nuscenes_train_bf16_ms {nus_train['bf16_ms']:.3f} nuscenes_train_f32_ms "
         f"{nus_train['f32_ms']:.3f} nuscenes_train_bf16_gib {nus_train['bf16_gib']:.3f} "
-        f"nuscenes_train_f32_gib {nus_train['f32_gib']:.3f} on {smi}")
+        f"nuscenes_train_f32_gib {nus_train['f32_gib']:.3f} "
+        + " ".join(f"serve_{c}_{k} {v:.3f}" for c, r in serve_ms.items() for k, v in r.items())
+        + f" on {smi}")
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,21 +23,26 @@ def _random_aug_tsfm(rng, rot_aug, shift_range):
 
 
 def prep_sample(data: dict, cfg: dict, augment: bool = False,
-                rng: np.random.Generator | None = None) -> dict:
+                rng: np.random.Generator | None = None, with_labels: bool = True) -> dict:
     """Augment (optionally), crop, remove ground, voxelise, sort points by
     pillar id and pad to the static capacities. The augmentation moves the
     points by a random SE(2) transform, adds noise and scales them, and
     conjugates the GT poses by the transform; it draws from `rng` in the
-    JAX package's order, so one seed gives both packages the same sample."""
+    JAX package's order, so one seed gives both packages the same sample.
+
+    with_labels=False (the serving path, whose labels are neutral zeros)
+    reads no label channel and gathers none: the four label slots hold
+    zeros. The keys and shapes are the same either way."""
     vg = cfg["voxel_generator"]
     cap = cfg["capacity"]
 
     points = np.asarray(data["raw_points"], np.float32)
     time_idx = np.asarray(data["time_indice"]).astype(np.int32)
-    sd = np.asarray(data["sd_labels"]).astype(np.int32)
-    fb = np.asarray(data["fb_labels"]).astype(np.int32)
-    inst = np.asarray(data["inst_labels"]).astype(np.int32)
-    sem = np.asarray(data.get("sem_labels", np.zeros_like(sd))).astype(np.int32)
+    if with_labels:
+        sd = np.asarray(data["sd_labels"]).astype(np.int32)
+        fb = np.asarray(data["fb_labels"]).astype(np.int32)
+        inst = np.asarray(data["inst_labels"]).astype(np.int32)
+        sem = np.asarray(data.get("sem_labels", np.zeros_like(sd))).astype(np.int32)
     ego_gt = np.asarray(data["ego_motion_gt"], np.float32)
     inst_gt = np.asarray(data["bbox_tsfm"], np.float32)
 
@@ -87,9 +92,12 @@ def prep_sample(data: dict, cfg: dict, augment: bool = False,
     order = np.argsort(pillar_of_point, kind="stable")
     points, time_idx = points[order], time_idx[order]
     pillar_of_point, in_range = pillar_of_point[order], in_range[order]
-    final_idx = sel_idx[order]
-    sd, fb = sd[final_idx], fb[final_idx]
-    inst, sem = inst[final_idx], sem[final_idx]
+    if with_labels:
+        final_idx = sel_idx[order]
+        sd, fb = sd[final_idx], fb[final_idx]
+        inst, sem = inst[final_idx], sem[final_idx]
+    else:  # one array for all four: pad_sample copies each into its own buffer
+        sd = fb = inst = sem = np.zeros(order.shape[0], np.int32)
 
     sample = {
         "points": points,

@@ -1,5 +1,6 @@
 """Synthetic LiDAR-sequence generator (the port's copy of the JAX package's
-`data/synthetic.py::generate_sample`).
+`data/synthetic.py`: `generate_sample`, and `write_synthetic_dataset`, which
+writes a dataset of its samples with the info files of each split).
 
 Emits one sample in the `.npz` contract the data layer consumes:
   raw_points [m,3] f32  — per-frame sensor coords (not ego-compensated)
@@ -15,6 +16,8 @@ arrays as the JAX package's generator.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -147,3 +150,27 @@ def generate_sample(
         "ego_motion_gt": ego_motion_gt,
         "bbox_tsfm": bbox_tsfm,
     }
+
+
+def write_synthetic_dataset(base_dir: str, n_samples: int, n_frames: int = 5,
+                            freq: float = 10.0, seed: int = 0,
+                            **gen_kwargs) -> list[str]:
+    """Write npz samples + train/val/test info files mirroring the reference
+    dataset layout (scene-grouped relative paths)."""
+    os.makedirs(base_dir, exist_ok=True)
+    paths = []
+    for i in range(n_samples):
+        scene = f"scene_{i % max(1, n_samples // 2):04d}"
+        os.makedirs(os.path.join(base_dir, scene), exist_ok=True)
+        rel = os.path.join(scene, f"sample_{i:05d}.npz")
+        sample = generate_sample(seed + i, n_frames=n_frames, freq=freq, **gen_kwargs)
+        np.savez_compressed(os.path.join(base_dir, rel), **sample)
+        paths.append(rel)
+    for split, sel in (
+        ("train", paths[: max(1, int(len(paths) * 0.6))]),
+        ("val", paths[max(1, int(len(paths) * 0.6)) : max(2, int(len(paths) * 0.8))]),
+        ("test", paths[max(2, int(len(paths) * 0.8)) :] or paths[-1:]),
+    ):
+        with open(os.path.join(base_dir, f"{split}_info.txt"), "w") as f:
+            f.write("\n".join(sel) + "\n")
+    return paths

@@ -14,7 +14,9 @@ tensor it runs `nn_plain`, the formula of the JAX package's
 points (ICP) takes apart: `pack_references` / `pack_queries` move each
 problem's valid rows to the front of its row in their order (a stable sort
 on the mask) and read the largest count to the host (it sizes the kernel's
-grid), and `nn_packed` computes on the packed rows.
+grid), and `nn_packed` computes on the packed rows, through the PyTorch
+operator `torch.ops.pcacc.nn_packed` (`nn_packed_op`, which writes into its
+outputs d2 and idx).
 
 The two versions round differently: the kernel computes sum (a - b)^2,
 which is exact to about one ulp of the distance, where the plain version
@@ -129,6 +131,52 @@ def nn_plain(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
                          None if a_valid is None else pack_queries(a_valid))
 
 
+@torch.library.custom_op("pcacc::nn_packed", mutates_args=("d2", "idx"), device_types="cuda")
+def nn_packed_op(a: torch.Tensor, ref_points: torch.Tensor, ref_count: torch.Tensor,
+                 ref_order: torch.Tensor, ref_max: int, q_valid: torch.Tensor | None,
+                 q_order: torch.Tensor | None, q_count: torch.Tensor | None, q_max: int,
+                 d2: torch.Tensor, idx: torch.Tensor) -> None:
+    """K4 as a PyTorch operator (`torch.ops.pcacc.nn_packed`): `nn_packed`
+    on the fields of `References` and `Queries` (q_* None: every query),
+    written into d2 [P, N] float32 and idx [P, N] int32. On CUDA tensors:
+    the kernel, one count on `nn.launches`; a failed build or launch
+    raises. On CPU tensors: the plain version."""
+    p, n, _ = a.shape
+    n_rows = n if q_order is None else q_max
+    if ref_max == 0 or n_rows == 0:  # nothing to compute
+        d2.fill_(_BIG)
+        idx.zero_()
+        return
+    a = a.contiguous()
+    slices = -(-ref_max // _SLICE)
+    part = (torch.empty((slices, p, n, 2), dtype=torch.int32, device=a.device)
+            if slices > 1 else None)
+    rc = build.load_library("nn").nn_forward(
+        a.data_ptr(), ref_points.data_ptr(), ref_count.data_ptr(), ref_order.data_ptr(),
+        None if q_order is None else q_order.data_ptr(),
+        None if q_count is None else q_count.data_ptr(),
+        d2.data_ptr(), idx.data_ptr(), None if part is None else part.data_ptr(),
+        p, n, ref_points.shape[1], n_rows, ref_max, _SLICE, build.stream(a))
+    build.check(rc, "nn")
+    nn.launches += 1
+
+
+@nn_packed_op.register_kernel("cpu")
+def _nn_packed_cpu(a, ref_points, ref_count, ref_order, ref_max, q_valid, q_order, q_count,
+                   q_max, d2, idx) -> None:
+    refs = References(ref_points, ref_order, ref_count, ref_max)
+    queries = None if q_order is None else Queries(q_valid, q_order, q_count, q_max)
+    got = _plain_packed(a, refs, queries)
+    d2.copy_(got[0])
+    idx.copy_(got[1])
+
+
+@nn_packed_op.register_fake
+def _nn_packed_fake(a, ref_points, ref_count, ref_order, ref_max, q_valid, q_order, q_count,
+                    q_max, d2, idx) -> None:
+    return None
+
+
 def nn_packed(a: torch.Tensor, refs: References, queries: Queries | None = None,
               out: tuple[torch.Tensor, torch.Tensor] | None = None):
     """`nn` on references (and asked-for queries) packed beforehand: a
@@ -136,43 +184,28 @@ def nn_packed(a: torch.Tensor, refs: References, queries: Queries | None = None,
     into `out` if given (a caller in a loop, such as ICP, reuses them).
 
     A CPU tensor goes to the plain version; a CUDA tensor goes to the
-    kernel or raises. The kernel walks the valid references only, and only
-    the asked-for queries; it maps the index back through `refs.order`.
+    kernel or raises (the operator `nn_packed_op`). The kernel walks the
+    valid references only, and only the asked-for queries; it maps the
+    index back through `refs.order`.
     """
     p, n, k = a.shape
     if k != 3 or p != refs.points.shape[0] \
             or (queries is not None and queries.valid.shape != (p, n)):
         raise ValueError(f"nn_packed: a {tuple(a.shape)} against references "
                          f"{tuple(refs.points.shape)}")
-    if not a.is_cuda:
-        if a.device.type != "cpu":
-            raise ValueError(f"nn: a on {a.device}")
-        got = _plain_packed(a, refs, queries)
-        return got if out is None else (out[0].copy_(got[0]), out[1].copy_(got[1]))
     dev = a.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"nn: a on {dev}")
     if refs.points.device != dev or (queries is not None and queries.order.device != dev):
         raise ValueError(f"nn: a on {dev}, references on {refs.points.device}")
-    if a.dtype != torch.float32 or refs.points.dtype != torch.float32:
+    if dev.type == "cuda" and (a.dtype != torch.float32 or refs.points.dtype != torch.float32):
         raise TypeError(f"nn kernel takes float32 points, got {a.dtype}, {refs.points.dtype}")
     if out is None:
-        out = (torch.empty((p, n), dtype=torch.float32, device=dev),
+        out = (torch.empty((p, n), dtype=a.dtype, device=dev),
                torch.empty((p, n), dtype=torch.int32, device=dev))
-    d2, idx = out
-    n_rows = n if queries is None else queries.max_count
-    if refs.max_count == 0 or n_rows == 0:  # nothing to compute
-        return d2.fill_(_BIG), idx.zero_()
-    a = a.contiguous()
-    slices = -(-refs.max_count // _SLICE)
-    part = torch.empty((slices, p, n, 2), dtype=torch.int32, device=dev) if slices > 1 else None
-    rc = build.load_library("nn").nn_forward(
-        a.data_ptr(), refs.points.data_ptr(), refs.count.data_ptr(), refs.order.data_ptr(),
-        None if queries is None else queries.order.data_ptr(),
-        None if queries is None else queries.count.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), None if part is None else part.data_ptr(),
-        p, n, refs.points.shape[1], n_rows, refs.max_count, _SLICE, build.stream(a))
-    build.check(rc, "nn")
-    nn.launches += 1
-    return d2, idx
+    q = (None, None, None, 0) if queries is None else queries
+    nn_packed_op(a, refs.points, refs.count, refs.order, refs.max_count, *q, *out)
+    return out
 
 
 def nn(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,

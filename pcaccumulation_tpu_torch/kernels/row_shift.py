@@ -8,7 +8,9 @@ outside the row. One call warps every frame of a folded [H, W, T*C] BEV
 canvas. On a CUDA tensor it launches the kernel of `csrc/row_shift.cu`
 (which replaces the TPU kernel
 `pcaccumulation_tpu/ops/bilinear.py::_row_shift_blocks_pallas`); on a CPU
-tensor it runs `row_shift_blocks_plain`.
+tensor it runs `row_shift_blocks_plain`. Its forward is the PyTorch operator
+`torch.ops.pcacc.row_shift_blocks` (`row_shift_blocks_op`), so that a graph
+recorded by `torch.export` calls it.
 
 `row_shift(img, shifts)` is the same with one shift per row: the TPU kernel
 `ops/bilinear.py::_row_shift_pallas` (K3), behind `warp_bev` and
@@ -109,24 +111,53 @@ def row_shift_backward(g: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("pcacc::row_shift_blocks", mutates_args=(), device_types="cuda")
+def row_shift_blocks_op(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
+    """The K2 forward as a PyTorch operator (`torch.ops.pcacc.row_shift_blocks`),
+    so that `torch.export` records it in a graph. On CUDA tensors: the
+    kernel of img's dtype, one launch on `row_shift_blocks.launches` or
+    `.launches_bf16`; a failed build or launch raises. On CPU tensors:
+    `row_shift_blocks_plain`."""
+    out, launched = _shift(img, shifts, n_blocks)
+    _count(row_shift_blocks, img, launched)
+    return out
+
+
+@row_shift_blocks_op.register_kernel("cpu")
+def _row_shift_blocks_cpu(img: torch.Tensor, shifts: torch.Tensor,
+                          n_blocks: int) -> torch.Tensor:
+    return _shift(img, shifts, n_blocks)[0]
+
+
+@row_shift_blocks_op.register_fake
+def _row_shift_blocks_fake(img: torch.Tensor, shifts: torch.Tensor,
+                           n_blocks: int) -> torch.Tensor:
+    return torch.empty_like(img)
+
+
+def _row_shift_k3(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """K3's forward: the shift with one block, counted on `row_shift`."""
+    out, launched = _shift(img, shifts, 1)
+    _count(row_shift, img, launched)
+    return out
+
+
 class RowShift(torch.autograd.Function):
-    """A row shift with the JAX package's gradient. `counted` is the public
-    wrapper whose launch counts the forward adds to; `backward_fn(g, shifts)`
-    is the gradient wrapper (with its own count)."""
+    """A row shift with the JAX package's gradient. `forward_fn(img, shifts)`
+    is the counted forward; `backward_fn(g, shifts)` is the gradient
+    wrapper (with its own count)."""
 
     @staticmethod
-    def forward(ctx, img, shifts, n_blocks, counted, backward_fn):
-        out, launched = _shift(img, shifts, n_blocks)
-        _count(counted, img, launched)
+    def forward(ctx, img, shifts, forward_fn, backward_fn):
         ctx.backward_fn = backward_fn
         ctx.save_for_backward(shifts)
-        return out
+        return forward_fn(img, shifts)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, g):
         (shifts,) = ctx.saved_tensors
-        return ctx.backward_fn(g, shifts), torch.zeros_like(shifts), None, None, None
+        return ctx.backward_fn(g, shifts), torch.zeros_like(shifts), None, None
 
 
 def _check(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int, what: str) -> None:
@@ -147,14 +178,12 @@ def _count(counted, img: torch.Tensor, launched: bool) -> None:
         counted.launches += launched
 
 
-def _apply(img, shifts, n_blocks, counted, backward_fn) -> torch.Tensor:
-    """Through `RowShift` where a gradient is wanted; else the shift alone
-    (no autograd node to build)."""
+def _apply(img, shifts, forward_fn, backward_fn) -> torch.Tensor:
+    """Through `RowShift` where a gradient is wanted; else the counted
+    forward alone (no autograd node to build)."""
     if torch.is_grad_enabled() and (img.requires_grad or shifts.requires_grad):
-        return RowShift.apply(img, shifts, n_blocks, counted, backward_fn)
-    out, launched = _shift(img, shifts, n_blocks)
-    _count(counted, img, launched)
-    return out
+        return RowShift.apply(img, shifts, forward_fn, backward_fn)
+    return forward_fn(img, shifts)
 
 
 def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> torch.Tensor:
@@ -165,10 +194,11 @@ def row_shift_blocks(img: torch.Tensor, shifts: torch.Tensor, n_blocks: int) -> 
     90 deg), and f = s - floor(s). A CPU tensor goes to the plain version;
     a CUDA tensor goes to the kernel or raises. The kernel rounds as the
     plain version does (a bf16 output is the float32 result rounded once).
-    Differentiable in img through `RowShift`, in either dtype.
+    Differentiable in img through `RowShift`, in either dtype; the forward
+    is the operator `row_shift_blocks_op`.
     """
     _check(img, shifts, n_blocks, "row_shift_blocks")
-    return _apply(img, shifts, n_blocks, row_shift_blocks,
+    return _apply(img, shifts, lambda i, s: row_shift_blocks_op(i, s, n_blocks),
                   lambda g, s: row_shift_blocks_backward(g, s, n_blocks))
 
 
@@ -178,7 +208,7 @@ def row_shift(img: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
     with one block; K3's own launch count)."""
     shifts = shifts[:, None]
     _check(img, shifts, 1, "row_shift")
-    return _apply(img, shifts, 1, row_shift, row_shift_backward)
+    return _apply(img, shifts, _row_shift_k3, row_shift_backward)
 
 
 row_shift_blocks.launches = 0  # float32 forward launches (one per call that reached the card)

@@ -9,7 +9,10 @@ On a CUDA tensor it calls the C entry point `segpool_forward` of
 `pcaccumulation_tpu/kernels/segscan.py::_seg_pool_impl`): two launches, the
 partials of the runs that cross a tile edge and then each tile reduced and
 written once, with no [N, C] table and no atomics, so that two calls give
-the same bits; on a CPU tensor it runs `seg_pool_plain`.
+the same bits; on a CPU tensor it runs `seg_pool_plain`. The forward is the
+PyTorch operator `torch.ops.pcacc.seg_pool` (`seg_pool_op`), so that a
+graph recorded by `torch.export` calls it: its CUDA implementation is the
+launch and its count, its CPU implementation the plain version.
 
 x may be float32 or bfloat16. A bf16 x goes to the bf16 kernel
 (`segpool_forward_bf16`, the TPU kernel's bf16 case, the one the pillar
@@ -81,11 +84,9 @@ def _check_kernel_inputs(ids: torch.Tensor, *tensors: torch.Tensor,
         raise ValueError(f"seg_pool kernel: [{n}, {c}] overflows its 32-bit element index")
 
 
-def _pool(x: torch.Tensor, ids: torch.Tensor, op: str) -> tuple[torch.Tensor, bool]:
-    """The kernel of x's dtype on a CUDA tensor (one C call), the plain
-    version on a CPU tensor. Returns (out, launched)."""
-    if x.device.type == "cpu":
-        return seg_pool_plain(x, ids, op), False
+def _launch_pool(x: torch.Tensor, ids: torch.Tensor, op: str) -> torch.Tensor:
+    """One C call of the forward kernel of x's dtype on CUDA tensors; counts
+    nothing (the caller does)."""
     x, ids = x.contiguous(), ids.contiguous()
     _check_kernel_inputs(ids, x, dtypes=(torch.float32, torch.bfloat16))
     n, c = x.shape
@@ -97,7 +98,34 @@ def _pool(x: torch.Tensor, ids: torch.Tensor, op: str) -> tuple[torch.Tensor, bo
         x.data_ptr(), ids.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c,
         0 if op == "max" else 1, build.stream(x))
     build.check(rc, "segscan")
-    return out, True
+    return out
+
+
+@torch.library.custom_op("pcacc::seg_pool", mutates_args=(), device_types="cuda")
+def seg_pool_op(x: torch.Tensor, ids: torch.Tensor, op: str) -> torch.Tensor:
+    """The forward as a PyTorch operator (`torch.ops.pcacc.seg_pool`), so
+    that `torch.export` records it in a graph. On CUDA tensors: the kernel
+    of x's dtype, one launch on `seg_pool.launches` or `.launches_bf16`; a
+    failed build or launch raises. On CPU tensors: the sortedness check and
+    `seg_pool_plain`."""
+    out = _launch_pool(x, ids, op)
+    if x.dtype == torch.bfloat16:
+        seg_pool.launches_bf16 += 1
+    else:
+        seg_pool.launches += 1
+    return out
+
+
+@seg_pool_op.register_kernel("cpu")
+def _seg_pool_cpu(x: torch.Tensor, ids: torch.Tensor, op: str) -> torch.Tensor:
+    if ids.numel() > 1 and bool((ids[1:] < ids[:-1]).any()):
+        raise ValueError("seg_pool needs non-decreasing ids")
+    return seg_pool_plain(x, ids, op)
+
+
+@seg_pool_op.register_fake
+def _seg_pool_fake(x: torch.Tensor, ids: torch.Tensor, op: str) -> torch.Tensor:
+    return torch.empty_like(x)
 
 
 def _backward_max(x, ids, y, g) -> torch.Tensor:
@@ -147,7 +175,7 @@ def seg_pool_backward(x: torch.Tensor, ids: torch.Tensor, y: torch.Tensor,
     """
     if x.device.type == "cpu":
         return seg_pool_backward_plain(x, ids, y, g, op)
-    out = _pool(g, ids, "sum")[0] if op == "sum" else _backward_max(x, ids, y, g)
+    out = _launch_pool(g, ids, "sum") if op == "sum" else _backward_max(x, ids, y, g)
     if x.dtype == torch.bfloat16:
         seg_pool_backward.launches_bf16 += 1
     else:
@@ -161,11 +189,7 @@ class SegPool(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, ids, op):
-        y, launched = _pool(x, ids, op)
-        if x.dtype == torch.bfloat16:
-            seg_pool.launches_bf16 += launched
-        else:
-            seg_pool.launches += launched
+        y = seg_pool_op(x, ids, op)
         ctx.op = op
         ctx.save_for_backward(x, ids, y)
         return y
@@ -192,12 +216,11 @@ def seg_pool(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch.Tenso
     if x.dim() != 2 or ids.shape != x.shape[:1]:
         raise ValueError(f"seg_pool wants x [N, C] and ids [N], got {tuple(x.shape)}, "
                          f"{tuple(ids.shape)}")
-    if x.device.type == "cpu":
-        if ids.numel() > 1 and bool((ids[1:] < ids[:-1]).any()):
-            raise ValueError("seg_pool needs non-decreasing ids")
-    elif x.device.type != "cuda" or ids.device != x.device:
+    if x.device.type not in ("cpu", "cuda") or ids.device != x.device:
         raise ValueError(f"seg_pool: x on {x.device}, ids on {ids.device}")
-    return SegPool.apply(x, ids, op)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return SegPool.apply(x, ids, op)
+    return seg_pool_op(x, ids, op)  # no autograd node to build
 
 
 seg_pool.launches = 0  # float32 forward kernel launches (one per call that reached the card)

@@ -8,7 +8,9 @@ The keypoint draw takes n_kpts background pillars per (batch, frame):
   filled with the last valid one (the JAX package's parity mode, exactly);
 - random: an exact top-k of uniform scores drawn from the given
   `torch.Generator` (a uniform draw without replacement), a shortfall
-  filled with the first drawn pillar.
+  filled with the first drawn pillar. The scores may be given instead
+  (`scores`, [B, T, M] in [0, 1)): the serving layer draws them once, so
+  that a live and an exported step compute the same thing.
 """
 
 from __future__ import annotations
@@ -29,12 +31,13 @@ _EPS = 1e-7
 
 def draw_keypoints(frame_mask: torch.Tensor, n: int, deterministic: bool,
                    scan_key: torch.Tensor | None = None,
-                   generator: torch.Generator | None = None) -> torch.Tensor:
+                   generator: torch.Generator | None = None,
+                   scores: torch.Tensor | None = None) -> torch.Tensor:
     """[B, T, M] frame masks -> [B, T, n] pillar indices."""
     b, t, m = frame_mask.shape
     if deterministic:
         scores = -scan_key.to(torch.float32)[:, None, :].expand(b, t, m)
-    else:
+    elif scores is None:
         scores = torch.rand((b, t, m), generator=generator, device=frame_mask.device)
     scores = torch.where(frame_mask, scores, float("-inf"))
     top_vals, top_idx = torch.topk(scores, n, dim=-1)  # sorted, descending
@@ -71,12 +74,13 @@ class EgoMotionHead(nn.Module):
 
     def forward(self, pillar_feats, pillar_mean, pillar_t, pillar_valid, pillar_bg,
                 ego_motion_gt, pillar_scan_key=None, generator=None, points=None,
-                time_idx=None, point_valid=None, point_bg=None) -> dict:
+                time_idx=None, point_valid=None, point_bg=None, kpt_scores=None) -> dict:
         """pillar_feats [B, M, C] L2-normalised ego features at pillars;
         pillar_mean [B, M, 3]; pillar_t [B, M] frame of each pillar;
         pillar_valid, pillar_bg [B, M] bool; ego_motion_gt [B, T, 4, 4];
         pillar_scan_key [B, M] = y*W + x (deterministic draw);
-        generator: the random draw's torch.Generator. With `icp` on and
+        generator: the random draw's torch.Generator, or kpt_scores
+        [B, T, M]: its uniform scores, drawn beforehand. With `icp` on and
         point_bg given, the chained estimate is refined by ICP on the
         estimated background points (points [B, N, 3], time_idx [B, N],
         point_valid, point_bg [B, N] bool), detached; the pair losses keep
@@ -94,7 +98,8 @@ class EgoMotionHead(nn.Module):
             & (pillar_t[:, None, :] == torch.arange(t_frames, device=dev)[None, :, None])
         )  # [B, T, M]
         top_idx = draw_keypoints(frame_mask, n, self.deterministic_sampling,
-                                 scan_key=pillar_scan_key, generator=generator)
+                                 scan_key=pillar_scan_key, generator=generator,
+                                 scores=kpt_scores)
         # a frame with no background pillar gates its pairs to identity
         frame_ok = frame_mask.any(dim=-1)  # [B, T]
 

@@ -141,10 +141,12 @@ class MotionNet(nn.Module):
 
     def forward(self, batch: dict, mode: str = "val",
                 generator: torch.Generator | None = None,
-                inst_labels_override: torch.Tensor | None = None) -> dict:
+                inst_labels_override: torch.Tensor | None = None,
+                kpt_scores: torch.Tensor | None = None) -> dict:
         """batch: the collated tensors (see `pcaccumulation_tpu_torch.to_device`).
-        generator: the random keypoint draw's torch.Generator (unused with
-        deterministic sampling). inst_labels_override [B, N] (test mode):
+        generator: the random keypoint draw's torch.Generator, or kpt_scores
+        [B, T, max_pillars]: its uniform scores, drawn beforehand (both
+        unused with deterministic sampling). inst_labels_override [B, N] (test mode):
         instance labels to reconstruct instead of the clustering's."""
         if mode not in ("train", "val", "test"):
             raise ValueError(f"mode={mode!r}")
@@ -207,7 +209,7 @@ class MotionNet(nn.Module):
                 batch["ego_motion_gt"].float(),
                 pillar_scan_key=pillar_coords[..., 1] * w + pillar_coords[..., 2],
                 generator=generator, points=points, time_idx=time_idx, point_valid=point_valid,
-                point_bg=(fb_est_point == 0) & point_valid)
+                point_bg=(fb_est_point == 0) & point_valid, kpt_scores=kpt_scores)
             results.update(ego)
 
         # ---- 5. warp + motion segmentation ----------------------------------

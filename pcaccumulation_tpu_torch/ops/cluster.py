@@ -14,7 +14,10 @@ Exactness against the JAX package: `torch.round` rounds half to even as
 eps boundary is the same. The propagation stops at its fixpoint, as the JAX
 package's `while_loop` does: the port reads one flag back to the host after
 each pass (one device sync per pass) instead of running all `n_iters`
-passes; both give the same labels.
+passes; both give the same labels. A graph that `torch.export` records
+cannot read that flag, so under export (`torch.compiler.is_exporting()`)
+the propagation runs all `n_iters` passes: a pass at the fixpoint leaves
+the labels as they are, so the labels are the same.
 """
 
 from __future__ import annotations
@@ -88,7 +91,9 @@ def dbscan_labels(points: torch.Tensor, valid: torch.Tensor, eps: float, min_sam
     """DBSCAN cluster ids over points [N, 3]: the smallest core index of
     each cluster, -1 for noise and invalid points. min_samples counts the
     point itself; border points take their smallest core neighbour's
-    label."""
+    label. Stops at the fixpoint (one host read per pass), except under
+    `torch.export`, where it runs all n_iters passes."""
+    early_exit = not torch.compiler.is_exporting()
     n = points.shape[0]
     eps2 = eps * eps
     idx = torch.arange(n, device=points.device)
@@ -107,10 +112,9 @@ def dbscan_labels(points: torch.Tensor, valid: torch.Tensor, eps: float, min_sam
         new = torch.where(core, torch.minimum(labels, neigh_min), labels)
         for _ in range(3):  # several cheap jumps per expensive pass
             new = jump(new)
-        changed = bool((new != labels).any())  # one device sync per pass
-        labels = new
-        if not changed:
+        if early_exit and not bool((new != labels).any()):  # one device sync per pass
             break
+        labels = new
 
     # border points: smallest core-neighbour label
     _, border_min = _neighbour_pass(points, valid, torch.where(core, labels, _BIG), eps2)

@@ -28,10 +28,15 @@ def _safe_ids(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 
 def masked_segment_sum(data, segment_ids, valid, num_segments: int):
-    """data [N, ...] summed into [num_segments, ...] over valid rows."""
+    """data [N, ...] summed into [num_segments, ...] over valid rows.
+
+    `index_put_` with `accumulate` sums on the card after a stable sort of
+    the ids, each segment in row order, with no atomics: two calls give the
+    same bits (`index_add_`'s atomics add in an order that changes from run
+    to run, and a flipped decision downstream follows from an ulp)."""
     masked = data * _rows(valid, data).to(data.dtype)
     out = data.new_zeros((num_segments + 1,) + data.shape[1:])
-    out.index_add_(0, _safe_ids(segment_ids, num_segments), masked)
+    out.index_put_((_safe_ids(segment_ids, num_segments),), masked, accumulate=True)
     return out[:num_segments]
 
 

@@ -1,7 +1,7 @@
 """Where the val forward's, the test forward's and the training
 micro-step's time goes on the card.
 
-    python -m pcaccumulation_tpu_torch.profile_forward [--train | --test] [config.yaml [--a.b=v ...]]
+    python -m pcaccumulation_tpu_torch.profile_forward [--train | --test | --serve] [config.yaml [--a.b=v ...]]
 
 Builds the MotionNet of the given config (default: configs/default.yaml;
 e.g. `--train configs/nuscene.yaml --train.ckpt_backend=pickle` for the
@@ -12,7 +12,9 @@ warms it up, then measures:
   clock, synchronised; --test times the test-mode forward (clustering,
   instance reconstruction of the clusters) with both ICPs on at the
   config's 50 iterations, the FB and MOS heads set to the scene's label
-  shares (`calibrate_heads`);
+  shares (`calibrate_heads`); --serve times the test-mode forward as the
+  serving step runs it, with the config's ICP setting (off in the shipped
+  configs), the heads set as with --test;
 - each stage's device time, from CUDA events around the forward's
   `motionnet.<stage>` ranges (see models/motionnet.py; the ICP ranges
   `icp_ego` and `icp_instance` lie inside `ego` and `reconstruction`, so
@@ -48,14 +50,14 @@ ITERS = 10  # forwards per measurement
 NESTED = ("icp_ego", "icp_instance")  # ranges inside the ego and reconstruction stages
 
 
-def default_scenes(cfg: dict, n: int) -> list[dict]:
-    """n synthetic samples at the config's capacities (seeds 0..n-1), at the
-    config's sweeps and rate, with enough points to fill `max_points`: 40
-    static clusters and 6 moving objects at the default config's 5 sweeps;
-    at more sweeps (the nuScenes preset's 11 at 20 Hz) 32 static clusters
-    and 6 moving objects of fewer points per sweep (~10,700 points and
-    ~3,300 pillars each), so that every sweep fits the pillar capacity."""
-    from pcaccumulation_tpu_torch.data.dataset import prep_sample
+def default_samples(cfg: dict, n: int, first: int = 0) -> list[dict]:
+    """n raw synthetic samples (`generate_sample`, seeds first..first+n-1)
+    at the config's sweeps and rate, with enough points to fill
+    `max_points`: 40 static clusters and 6 moving objects at the default
+    config's 5 sweeps; at more sweeps (the nuScenes preset's 11 at 20 Hz)
+    32 static clusters and 6 moving objects of fewer points per sweep
+    (~10,700 points and ~3,300 pillars each), so that every sweep fits the
+    pillar capacity."""
     from pcaccumulation_tpu_torch.data.synthetic import generate_sample
 
     t = cfg["voxel_generator"]["n_sweeps"]
@@ -64,7 +66,14 @@ def default_scenes(cfg: dict, n: int) -> list[dict]:
               pts_per_cluster=900 if dense else 400, pts_per_object=500 if dense else 230)
     if not dense:
         kw["freq"] = cfg["data"]["freq"]
-    return [prep_sample(generate_sample(seed=s, n_frames=t, **kw), cfg) for s in range(n)]
+    return [generate_sample(seed=s, n_frames=t, **kw) for s in range(first, first + n)]
+
+
+def default_scenes(cfg: dict, n: int) -> list[dict]:
+    """`default_samples` prepared at the config's capacities."""
+    from pcaccumulation_tpu_torch.data.dataset import prep_sample
+
+    return [prep_sample(s, cfg) for s in default_samples(cfg, n)]
 
 
 def shift_to_share(bias: torch.Tensor, margins: torch.Tensor, share: float) -> float:
@@ -411,7 +420,7 @@ def main(argv: list[str]) -> None:
     print(f"card: {smi}", flush=True)
     build.build_all()
     args = argv[1:]
-    modes = [a for a in args if a in ("--train", "--test")]
+    modes = [a for a in args if a in ("--train", "--test", "--serve")]
     paths = [a for a in args if a.endswith(".yaml")]
     overrides = [a for a in args if a not in modes and a not in paths]
     if len(modes) > 1 or len(paths) > 1:
@@ -422,6 +431,8 @@ def main(argv: list[str]) -> None:
         profile_train(port, cfg, smi, name)
     elif "--test" in modes:
         profile_val(port, test_mode_config(cfg), smi, mode="test", name=name)
+    elif "--serve" in modes:
+        profile_val(port, cfg, smi, mode="test", name=name)
     else:
         profile_val(port, cfg, smi, name=name)
 

@@ -262,9 +262,9 @@ def _port_files():
 
 
 def test_port_imports_no_jax():
-    """No file of the port, and not chip_smoke.py, imports jax, flax or the
-    JAX package."""
-    banned = {"jax", "flax", "pcaccumulation_tpu"}
+    """No file of the port, and not chip_smoke.py, imports jax, flax, optax
+    or the JAX package."""
+    banned = {"jax", "flax", "optax", "pcaccumulation_tpu"}
     found = []
     for path in _port_files():
         for node in ast.walk(ast.parse(path.read_text())):
@@ -282,9 +282,12 @@ def test_port_imports_no_jax():
             "pcaccumulation_tpu_torch.train.trainer, pcaccumulation_tpu_torch.main, "
             "pcaccumulation_tpu_torch.profile_forward, pcaccumulation_tpu_torch.ops.icp, "
             "pcaccumulation_tpu_torch.ops.cluster, pcaccumulation_tpu_torch.kernels.chamfer, "
-            "pcaccumulation_tpu_torch.train.tester, pcaccumulation_tpu_torch.evaluation; "
+            "pcaccumulation_tpu_torch.train.tester, pcaccumulation_tpu_torch.evaluation, "
+            "pcaccumulation_tpu_torch.serve, pcaccumulation_tpu_torch.track, "
+            "pcaccumulation_tpu_torch.utils.checkpoint, pcaccumulation_tpu_torch.data.ground, "
+            "pcaccumulation_tpu_torch.train.sf_metrics; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'pcaccumulation_tpu')], sorted(sys.modules)")
+            "('jax', 'flax', 'optax', 'pcaccumulation_tpu')], sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
