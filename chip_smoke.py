@@ -56,7 +56,20 @@ the ego head sees background:
   serial and streamed rates in sequences per second and the H2D bytes per
   call; `export` on the card and `ExportedPredictor` on the artifact
   (labels equal, floats within 1e-5, the same launch counts); the tracker
-  over the streamed outputs.
+  over the streamed outputs; and on the default config with both ICPs at
+  50 iterations (3 scans, export included: K4 100 launches per predict,
+  live and exported, inside the graph);
+- the options of `configs/default.yaml` beyond the defaults
+  (`options_phase`, `nuscenes_full_phase`, `remat_phase`,
+  `process_loader_phase`, `options_cli_phase`): the val forward with
+  `seq_pose: chain`, `seq_pose: full` and `stpn.n_band_layers: 2` at full
+  width, each held against the CPU and timed beside `skip`; the nuScenes
+  bf16 val forward with `seq_pose: full` (55 pairs) against float32; the
+  nuScenes bf16 train micro-step with `train.remat` against a plain one
+  on the same weights, batch and generator seed (every gradient leaf and
+  running statistic), both timed with peak memory; forked loader workers
+  (`worker_mode: process`) against threads and under the Trainer; the CLI
+  in train, val and test mode with these options.
 Any failure exits non-zero. The last two lines of stdout are the `kernels`
 JSON line and the result line `{"ok": true, "device": {...}}`. Without a
 CUDA device it exits 1 and prints no result. With `--only kernels` it stops
@@ -1534,24 +1547,10 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
         f"forward on the card (same weights and batch): {val_m}; ego poses of frames 1..10 at "
         f"least {from_id:.4f} from the identity")
 
-    def median_ms(model, mode, reps):
-        with torch.no_grad():
-            model(batches[0], mode=mode)
-            times = []
-            for i in range(reps):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
-                    enable_timing=True)
-                torch.cuda.synchronize()
-                start.record()
-                model(batches[i % n_fwd], mode=mode)
-                end.record()
-                times.append(sync_ms(start, end))
-        return statistics.median(times), times
-
     times = {}
     for name, model in (("val_f32", m32), ("val_bf16", m16), ("val_bf16_2", m16),
                         ("val_f32_2", m32)):
-        times[name] = median_ms(model, "val", 5)
+        times[name] = forward_ms(model, batches, 5)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         m16(batches[0])
@@ -1616,7 +1615,7 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
         f"against the float32 forward: clustering pair agreement {agree}; with the float32 "
         f"run's labels injected: {test_m}")
     for name, model in (("test_f32", t32), ("test_bf16", t16)):
-        times[name] = median_ms(model, "test", 3)
+        times[name] = forward_ms(model, batches, 3, mode="test")
     log("nuScenes forwards (B=1, CUDA events, median ms and all times): " + "; ".join(
         f"{k} {v[0]:.3f} ({', '.join(f'{t:.3f}' for t in v[1])})" for k, v in times.items())
         + f"; peak memory of one val forward bf16 {peak16:.3f} GiB, float32 {peak32:.3f} GiB; "
@@ -2012,6 +2011,9 @@ def serving_phase(port, name: str, cfg: dict, state: dict, n_scans: int, smi: st
     want_counts = {k: 0 for k in kernel_counts()}
     want_counts["K1-bf16" if bf16 else "K1"] = k1_per
     want_counts["K2-bf16" if bf16 else "K2"] = 3
+    # K4 once per ICP iteration: ego, then instance
+    want_counts["K4"] = sum(cfg[k]["icp_max_iter"] for k in ("pose_estimation", "tpointnet")
+                            if cfg[k].get("icp", False))
     problems = []
 
     # ---- predict against the direct test-mode forward, launches counted ----
@@ -2153,6 +2155,384 @@ def serving_phase(port, name: str, cfg: dict, state: dict, n_scans: int, smi: st
     return res
 
 
+# the val forward, card against CPU: float32 throughout, TF32 off; the card's
+# convolutions and reductions round in another order than the CPU's
+VAL_TOL = {"fb_seg_est": 1e-3, "ego_motion_est": 1e-3, "transformed_points": 1e-2,
+           "mos_est": 1e-2, "offset_est": 1e-2, "rec_est": 1e-2}
+
+
+def forward_ms(model, batches: list, reps: int, mode: str = "val") -> tuple[float, list]:
+    """Median and all CUDA-event times of `reps` forwards over `batches`,
+    after one warm-up."""
+    with torch.no_grad():
+        model(batches[0], mode=mode)
+        times = []
+        for i in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            model(batches[i % len(batches)], mode=mode)
+            end.record()
+            times.append(sync_ms(start, end))
+    return statistics.median(times), times
+
+
+def card_vs_cpu(what: str, port, cfg: dict, model, batch_gpu: dict, scene: dict,
+                gpu_out: dict) -> dict:
+    """A val forward on the card against the same model's on the CPU (same
+    weights and batch): `VAL_TOL` per output, MOS and offsets on the rows
+    whose FB decision agrees, at most 1 in 1,000 pillar FB decisions
+    flipped; every frame 1..T-1 of the card's ego estimate at least 1e-4
+    from the identity (the poses compared are real ones). Returns the
+    errors."""
+    from pcaccumulation_tpu_torch.data.loader import collate
+
+    cpu_model = port.build_model(cfg, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    with torch.no_grad():
+        cpu = cpu_model(port.to_device(collate([scene]), "cpu"))
+    gpu = {k: v.cpu() for k, v in gpu_out.items() if torch.is_tensor(v)}
+    pv = batch_gpu["pillar_valid"].cpu()
+    logits = gpu["fb_logit_pillar"]
+    margin = float((logits[..., 1] - logits[..., 0]).abs()[pv].min())
+    est_g = gpu["fb_logit_pillar"][..., 1] > gpu["fb_logit_pillar"][..., 0]
+    est_c = cpu["fb_logit_pillar"][..., 1] > cpu["fb_logit_pillar"][..., 0]
+    flips = int((est_g != est_c)[pv].sum())
+    same_fg = gpu["fb_mask"] == cpu["fb_mask"]
+    errs = {}
+    for key, t in VAL_TOL.items():
+        if gpu[key].shape != cpu[key].shape:
+            fail(f"{what} GPU vs CPU {key}: shape {tuple(gpu[key].shape)} != "
+                 f"{tuple(cpu[key].shape)}")
+        d = (gpu[key] - cpu[key]).abs()
+        if key in ("mos_est", "offset_est"):
+            d = d[same_fg]  # a flipped FB decision changes which rows are decoded
+        errs[key] = float(d.max())
+        if errs[key] > t:
+            fail(f"{what} GPU vs CPU {key}: max abs err {errs[key]:.3e} > {t}")
+    if flips > max(1, int(pv.sum()) // 1000):
+        fail(f"{what}: {flips} pillar FB decisions differ between GPU and CPU")
+    errs.update(fb_flips=flips, fb_margin=margin, pillars=int(pv.sum()))
+    # the ego poses compared must be real ones
+    from_id = float((gpu["ego_motion_est"][:, 1:] - torch.eye(4)).abs().amax((-1, -2)).min())
+    if from_id < 1e-4:
+        fail(f"{what}: an ego pose of frames 1..T-1 within 1e-4 of the identity; the comparison "
+             f"tests nothing")
+    errs["ego_from_identity"] = from_id
+    return errs
+
+
+def options_phase(port, cfg: dict, weights: dict, batches: list, scenes: list, skip_ms: float,
+                  smi: str) -> dict:
+    """The options of this slice on the default config at full width (T=5,
+    288x288, 90,000 points, float32, deterministic keypoints, the main
+    path's calibrated weights): the val forward with `seq_pose: chain`
+    (pairs (t, t-1), poses left-composed), `seq_pose: full` (10 pairs, the
+    anchor pairs' poses) and `stpn.n_band_layers: 2` (two Conv3d, two
+    `post_conv` Conv2d after the temporal max, seeded), each over the
+    scenes with the kernels' counts zeroed before and read after (K1 2 and
+    K2 3 per forward), held against its CPU forward (`card_vs_cpu`) and
+    timed beside the main path's `skip` forward. Returns the times."""
+    import copy
+
+    from pcaccumulation_tpu_torch.utils.checkpoint import partial_load
+
+    out = {}
+    n_fwd = len(batches)
+    for name, section, key, value in (("chain", "pose_estimation", "seq_pose", "chain"),
+                                      ("full", "pose_estimation", "seq_pose", "full"),
+                                      ("band2", "stpn", "n_band_layers", 2)):
+        t0 = time.perf_counter()
+        cfg_v = copy.deepcopy(cfg)
+        cfg_v[section][key] = value
+        torch.manual_seed(SEED)
+        model = port.build_model(cfg_v)
+        model.load_state_dict(partial_load(weights, model.state_dict()))
+        zero_kernel_counts()
+        with torch.no_grad():
+            outs = [model(bt) for bt in batches]
+        counts = kernel_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update({"K1": 2 * n_fwd, "K2": 3 * n_fwd})
+        if counts != want:
+            fail(f"option {key}={value!r}: {n_fwd} val forwards launched {counts}, want {want}")
+        for i, o in enumerate(outs):
+            for k, v in o.items():
+                if torch.is_tensor(v) and v.is_floating_point() and not bool(
+                        torch.isfinite(v).all()):
+                    fail(f"option {key}={value!r}, scene {i}: non-finite {k}")
+        pairs = outs[0]["perm_matrix"].shape[1]
+        errs = card_vs_cpu(f"option {key}={value!r}", port, cfg_v, model, batches[0], scenes[0],
+                           outs[0])
+        ms, times = forward_ms(model, batches, 5)
+        out[name] = ms
+        log(f"option {key}={value!r} (default config, full width): {n_fwd} val forwards launched "
+            f"{counts}; perm_matrix {pairs} pairs; GPU vs CPU "
+            + ", ".join(f"{k} {errs[k]:.2e}" for k in VAL_TOL)
+            + f", FB decisions flipped {errs['fb_flips']}, ego poses at least "
+            f"{errs['ego_from_identity']:.4f} from the identity"
+            + f"; val forward median {ms:.3f} ms ({', '.join(f'{t:.3f}' for t in times)}) "
+            f"against skip/4 {skip_ms:.3f} ms on {smi} ({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def nuscenes_full_phase(port, state: dict, skip_ms: float, smi: str) -> dict:
+    """The nuScenes preset's bf16 val forward with `seq_pose: full` (55
+    pairs at T=11), on the nuScenes phase's weights and a scene of its:
+    counts zeroed before and read after (K1-bf16 2, K2-bf16 3, nothing
+    else), held against the float32 forward with `full` by `bf16_vs_f32`,
+    timed beside it and beside the bf16 `skip` forward. Returns the times."""
+    import copy
+
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.profile_forward import default_scenes
+
+    t0 = time.perf_counter()
+    cfg16 = load_config("configs/nuscene.yaml", ["--misc.mode=val", "--train.ckpt_backend=pickle",
+                                                 "--pose_estimation.seq_pose=full"])
+    cfg16["pose_estimation"]["deterministic_sampling"] = True
+    cfg32 = copy.deepcopy(cfg16)
+    cfg32["precision"]["compute_dtype"] = "float32"
+    batches = [port.to_device(collate([s])) for s in default_scenes(cfg16, 1)]
+    models = {}
+    for name, cfg in (("bf16", cfg16), ("f32", cfg32)):
+        models[name] = port.build_model(cfg)
+        models[name].load_state_dict(state)
+    zero_kernel_counts()
+    with torch.no_grad():
+        o16 = models["bf16"](batches[0])
+    counts = kernel_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update({"K1-bf16": cfg16["pillar_encoder"]["depth"] - 1, "K2-bf16": 3})
+    if counts != want:
+        fail(f"nuScenes bf16 val forward with seq_pose=full launched {counts}, want {want}")
+    pairs = o16["perm_matrix"].shape[1]
+    t_frames = cfg16["voxel_generator"]["n_sweeps"]
+    if models["bf16"].ego_motion_head.src_f.numel() != t_frames * (t_frames - 1) // 2 or (
+            pairs != t_frames - 1):
+        fail(f"nuScenes seq_pose=full: {models['bf16'].ego_motion_head.src_f.numel()} pairs, "
+             f"perm_matrix {pairs}")
+    with torch.no_grad():
+        o32 = models["f32"](batches[0])
+    m = bf16_vs_f32("nuScenes val bf16 vs float32, seq_pose=full", o16, o32, batches[0], 1.0)
+    res = {"bf16": forward_ms(models["bf16"], batches, 5), "f32": forward_ms(models["f32"],
+                                                                            batches, 3)}
+    log(f"nuScenes bf16 val forward, seq_pose=full ({t_frames * (t_frames - 1) // 2} pairs, "
+        f"{pairs} anchor pairs' perm matrices): launched {counts}; against the float32 forward "
+        f"with full: {m}; median bf16 {res['bf16'][0]:.3f} ms "
+        f"({', '.join(f'{t:.3f}' for t in res['bf16'][1])}), float32 {res['f32'][0]:.3f} ms, "
+        f"bf16 skip/10 {skip_ms:.3f} ms on {smi} ({time.perf_counter() - t0:.1f} s)")
+    return {k: v[0] for k, v in res.items()}
+
+
+def remat_phase(port, state: dict, smi: str) -> dict:
+    """`train.remat` on the nuScenes bf16 train micro-step (B=4, iter_size
+    2, train-mode BN, the random keypoint draw): from the same weights
+    (`state`), batch and generator seed, one plain micro-step and one remat
+    micro-step under `torch.use_deterministic_algorithms` (the backward's
+    scatter-adds otherwise add in an order that changes from call to call,
+    so that two plain steps differ at a third of the leaves): every
+    gradient leaf and every running statistic of the remat step equal to
+    the plain step's, bit for bit, and a second plain step's too. Then
+    both timed with PyTorch's default algorithms (warm-up, 3 micro-steps
+    each, order plain, remat, remat, plain) with their peak memory. Returns
+    the measures."""
+    import copy
+    import warnings
+
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.profile_forward import default_scenes
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = load_config("configs/nuscene.yaml", ["--misc.mode=train", "--train.ckpt_backend=pickle"])
+    cfg_r = copy.deepcopy(cfg)
+    cfg_r["train"]["remat"] = True
+    batch = port.to_device(collate(default_scenes(cfg, cfg["train"]["batch_size"])))
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_remat_")
+    try:
+        def step(c):
+            model = port.build_model(c)
+            model.load_state_dict(state)
+            calls = []  # Conv2d forwards: the recompute runs them again
+            for mod in model.modules():
+                if isinstance(mod, torch.nn.Conv2d):
+                    mod.register_forward_hook(lambda *_: calls.append(1))
+            tr = Trainer(c, model, {"train": [batch, batch]}, save_dir=run_dir)
+            st = tr.train_step(batch, tr.step_generator(1, "train", 0))
+            torch.cuda.synchronize()
+            return (float(st["loss"]), len(calls),
+                    {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                     if p.grad is not None},
+                    {n: b.clone() for n, b in model.named_buffers()
+                     if n.endswith(("running_mean", "running_var", "num_batches_tracked"))})
+
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # ops without a deterministic form warn
+                (l0, c0, g0, b0), (l1, c1, g1, b1), (l2, _, g2, b2) = (step(cfg), step(cfg_r),
+                                                                       step(cfg))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        if c0 == 0 or c1 != 2 * c0:
+            fail(f"remat: the remat step ran {c1} Conv2d forwards, the plain one {c0} (want "
+                 f"twice as many: the recompute)")
+        if sorted(g0) != sorted(g1) or sorted(g0) != sorted(g2):
+            fail("remat: the steps' gradient leaves differ")
+        for name, g, b in (("remat", g1, b1), ("second plain", g2, b2)):
+            diff = [n for n in g0 if not torch.equal(g[n], g0[n])]
+            diff_b = [n for n in b0 if not torch.equal(b[n], b0[n])]
+            if diff or diff_b:
+                worst = max((float((g[n] - g0[n]).double().norm())
+                             / max(float(g0[n].double().norm()), 1e-30), n) for n in diff) \
+                    if diff else None
+                fail(f"remat: the {name} step's gradients differ from the plain step's at "
+                     f"{len(diff)} leaves (worst rel-norm {worst}), running statistics at "
+                     f"{diff_b}")
+        log(f"remat (nuScenes bf16 micro-step, B={cfg['train']['batch_size']}, the same weights, "
+            f"batch and generator seed, deterministic algorithms): Conv2d forwards plain {c0}, "
+            f"remat {c1}; loss plain {l0:.6f}, remat {l1:.6f}, plain again {l2:.6f}; all "
+            f"{len(g0)} gradient leaves and {len(b0)} "
+            f"running statistics of the remat step bit-equal to the plain step's")
+
+        res = {}
+        for name, c in (("plain", cfg), ("remat", cfg_r), ("remat_2", cfg_r), ("plain_2", cfg)):
+            model = port.build_model(c)
+            model.load_state_dict(state)
+            tr = Trainer(c, model, {"train": [batch, batch]}, save_dir=run_dir)
+            tr.train_step(batch, tr.step_generator(0, "train", 0))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for i in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                torch.cuda.synchronize()
+                start.record()
+                tr.train_step(batch, tr.step_generator(1, "train", i))
+                end.record()
+                times.append(sync_ms(start, end))
+            res[name] = (statistics.median(times), times,
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+            del model, tr
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    log("remat timing (nuScenes bf16 micro-step, CUDA events, median ms, all, peak GiB): "
+        + "; ".join(f"{k} {v[0]:.3f} ({', '.join(f'{t:.3f}' for t in v[1])}) {v[2]:.3f} GiB"
+                    for k, v in res.items()) + f" on {smi} ({time.perf_counter() - t0:.1f} s)")
+    return {"plain_ms": statistics.median([res["plain"][0], res["plain_2"][0]]),
+            "remat_ms": statistics.median([res["remat"][0], res["remat_2"][0]]),
+            "plain_gib": res["plain"][2], "remat_gib": res["remat"][2]}
+
+
+def process_loader_phase(port) -> None:
+    """`worker_mode: process` on configs/synthetic.yaml over data/synthetic:
+    the train and val loaders' batches with forked workers equal to the
+    thread mode's (augmentation off, so that a batch is a function of its
+    indices), then the Trainer takes an epoch of train micro-steps and the
+    val steps through the CLI's process-mode loaders (`main.build_loaders`,
+    the training split augmented): finite losses, K1 and K2 launched."""
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.dataset import SceneDataset
+    from pcaccumulation_tpu_torch.data.loader import make_loader
+    from pcaccumulation_tpu_torch.main import build_loaders
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = load_config("configs/synthetic.yaml",
+                      ["--train.worker_mode=process", "--val.worker_mode=process",
+                       "--train.batch_size=2"])
+    n_batches = 0
+    for split in ("train", "val"):
+        ds = SceneDataset(cfg, split, augment=False)
+        got = {mode: list(make_loader(ds, batch_size=cfg[split]["batch_size"], seed=1,
+                                      num_workers=cfg[split]["num_workers"], mode=mode))
+               for mode in ("thread", "process")}
+        if len(got["process"]) != len(got["thread"]) or not got["process"]:
+            fail(f"process loader ({split}): {len(got['process'])} batches, thread mode "
+                 f"{len(got['thread'])}")
+        for a, b in zip(got["process"], got["thread"]):
+            if sorted(a) != sorted(b) or not all(np.array_equal(a[k], b[k]) for k in a):
+                fail(f"process loader ({split}): a batch differs from the thread mode's")
+        n_batches += len(got["process"])
+    loaders = build_loaders(cfg)
+    if any(ld.mode != "process" for ld in loaders.values()):
+        fail("process loader: the CLI's loaders are not in process mode")
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_loader_")
+    try:
+        torch.manual_seed(SEED)
+        tr = Trainer(cfg, port.build_model(cfg), loaders, save_dir=run_dir)
+        zero_kernel_counts()
+        meters = {ph: tr.inference_one_epoch(1, ph) for ph in ("train", "val")}
+        counts = kernel_counts()
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    losses = {ph: m["loss"].avg for ph, m in meters.items()}
+    if not all(np.isfinite(v) for v in losses.values()) or counts["K1"] == 0 or counts["K2"] == 0:
+        fail(f"process loader: Trainer losses {losses}, launches {counts}")
+    log(f"process loader (configs/synthetic.yaml, data/synthetic): {n_batches} train and val "
+        f"batches of forked workers equal to the thread mode's; the Trainer's epoch over "
+        f"{len(loaders['train'])} train (B=2, augmented) and {len(loaders['val'])} val batches "
+        f"from process-mode loaders: loss {losses}, launches {counts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def options_cli_phase(port) -> None:
+    """`python -m pcaccumulation_tpu_torch.main configs/default.yaml 1 1`
+    over data/synthetic in train (one epoch), val and test mode, each with
+    options of this slice (every one at least once): train with
+    `train.remat`, process workers for train and val, `seq_pose: chain` and
+    `n_band_layers: 1`; val with `seq_pose: full`, `n_band_layers: 3` and a
+    process worker; test with `seq_pose: full`, `n_band_layers: 2`, a
+    process worker and both ICPs. rc 0 and the run's outputs."""
+    from pcaccumulation_tpu_torch.main import main as cli_main
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_options_cli_")
+    cwd = os.getcwd()
+    base = ["main", os.path.join(repo, "configs", "default.yaml"), "1", "1",
+            f"--path.dataset_base={os.path.join(repo, 'data', 'synthetic')}"]
+    runs = {
+        "train": ["--misc.mode=train", "--train.max_epoch=2", "--train.remat=true",
+                  "--train.worker_mode=process", "--val.worker_mode=process",
+                  "--pose_estimation.seq_pose=chain", "--stpn.n_band_layers=1",
+                  "--misc.exp_name=opt_train"],
+        "val": ["--misc.mode=val", "--val.worker_mode=process", "--pose_estimation.seq_pose=full",
+                "--stpn.n_band_layers=3", "--misc.exp_name=opt_val"],
+        "test": ["--misc.mode=test", "--test.worker_mode=process",
+                 "--pose_estimation.seq_pose=full", "--stpn.n_band_layers=2",
+                 "--pose_estimation.icp=true", "--tpointnet.icp=true",
+                 "--misc.exp_name=opt_test"],
+    }
+    done = {}
+    try:
+        os.chdir(tmp)
+        for mode, extra in runs.items():
+            t1 = time.perf_counter()
+            zero_kernel_counts()
+            rc = cli_main(base + extra)
+            counts = kernel_counts()
+            if rc != 0 or counts["K1"] == 0 or counts["K2"] == 0 or (
+                    (counts["K4"] == 0) == (mode == "test")):
+                fail(f"options CLI {mode} ({' '.join(extra)}): rc {rc}, launches {counts}")
+            done[mode] = (round(time.perf_counter() - t1, 1), counts)
+        ckpts = sorted(f for f in os.listdir(os.path.join(tmp, "snapshot", "opt_train"))
+                       if f.endswith(".ckpt"))
+        dumps = sorted(os.listdir(os.path.join(tmp, "results", "opt_test")))
+        if "model_latest.ckpt" not in ckpts or len(dumps) != 3:
+            fail(f"options CLI: checkpoints {ckpts}, test dumps {dumps}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("options CLI (configs/default.yaml 1 1 over data/synthetic): " + "; ".join(
+        f"{m} [{' '.join(runs[m][:-1])}] rc 0 in {s} s, launches {c}" for m, (s, c) in done.items())
+        + f"; checkpoints {ckpts}; test dumps {dumps} ({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
     args = sys.argv[1:]
     if args not in ([], ["--only", "kernels"]):
@@ -2285,45 +2665,12 @@ def main() -> None:
 
     # the card's forward against the CPU's, same weights and batch
     t0 = time.perf_counter()
-    cpu_model = port.build_model(cfg, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-    with torch.no_grad():
-        cpu = cpu_model(port.to_device(collate([scenes[0]]), "cpu"))
-    log(f"CPU forward: {time.perf_counter() - t0:.1f} s")
-    gpu = {k: v.cpu() for k, v in gpu_out[0].items() if torch.is_tensor(v)}
-    logits = gpu["fb_logit_pillar"]
-    pv = batches[0]["pillar_valid"].cpu()
-    margin = float((logits[..., 1] - logits[..., 0]).abs()[pv].min())
-    est_g = gpu["fb_logit_pillar"][..., 1] > gpu["fb_logit_pillar"][..., 0]
-    est_c = cpu["fb_logit_pillar"][..., 1] > cpu["fb_logit_pillar"][..., 0]
-    flips = int((est_g != est_c)[pv].sum())
-    errs = {}
-    # tolerances: float32 throughout, TF32 off; the card's convolutions and
-    # reductions round in another order than the CPU's
-    tol = {"fb_seg_est": 1e-3, "ego_motion_est": 1e-3, "transformed_points": 1e-2,
-           "mos_est": 1e-2, "offset_est": 1e-2, "rec_est": 1e-2}
-    same_fg = gpu["fb_mask"] == cpu["fb_mask"]
-    for key, t in tol.items():
-        if gpu[key].shape != cpu[key].shape:
-            fail(f"GPU vs CPU {key}: shape {tuple(gpu[key].shape)} != {tuple(cpu[key].shape)}")
-        d = (gpu[key] - cpu[key]).abs()
-        if key in ("mos_est", "offset_est"):
-            d = d[same_fg]  # a flipped FB decision changes which rows are decoded
-        errs[key] = float(d.max())
-        if errs[key] > t:
-            fail(f"GPU vs CPU {key}: max abs err {errs[key]:.3e} > {t}")
-    if flips > max(1, int(pv.sum()) // 1000):
-        fail(f"{flips} pillar FB decisions differ between GPU and CPU")
-    # the ego poses compared must be real ones: every frame 1..T-1 of the
-    # card's estimate at least 1e-4 from the identity
-    from_id = (gpu["ego_motion_est"][:, 1:] - torch.eye(4)).abs().amax((-1, -2))
-    if float(from_id.min()) < 1e-4:
-        fail(f"val phase: ego_motion_est of frames 1..T-1 within 1e-4 of the identity "
-             f"({[round(float(x), 6) for x in from_id.reshape(-1)]}); the comparison tests nothing")
-    log("GPU vs CPU: " + ", ".join(f"{k} {v:.2e} (tol {tol[k]})" for k, v in errs.items())
-        + f"; ego_motion_est of frames 1..T-1 from the identity: max abs "
-        + ", ".join(f"{float(x):.4e}" for x in from_id.reshape(-1))
-        + f"; FB decisions flipped {flips} of {int(pv.sum())} (min |logit margin| {margin:.2e})")
+    errs = card_vs_cpu("val phase", port, cfg, model, batches[0], scenes[0], gpu_out[0])
+    log(f"GPU vs CPU ({time.perf_counter() - t0:.1f} s with the CPU forward): "
+        + ", ".join(f"{k} {errs[k]:.2e} (tol {t})" for k, t in VAL_TOL.items())
+        + f"; ego_motion_est of frames 1..T-1 at least {errs['ego_from_identity']:.4e} from the "
+        f"identity; FB decisions flipped {errs['fb_flips']} of {errs['pillars']} (min |logit "
+        f"margin| {errs['fb_margin']:.2e})")
 
     # random keypoint draw
     cfg_r = dict(cfg, pose_estimation=dict(cfg["pose_estimation"],
@@ -2357,6 +2704,9 @@ def main() -> None:
         f"{fwd_ms:.3f} ms of 10 "
         f"(min {min(times):.3f}, max {max(times):.3f}) on {smi}")
 
+    # ---- 6a. the options: seq_pose chain and full, n_band_layers 2 ------------
+    opt_ms = options_phase(port, cfg, model.state_dict(), batches, scenes, fwd_ms, smi)
+
     # ---- 6b. K3, K4 and the Chamfer distance vs plain -------------------------
     k3_entry = k3_phase(dev, gen)
     k4_entry = k4_phase(dev, gen, scenes[0])
@@ -2368,12 +2718,18 @@ def main() -> None:
     # ---- 6d. the Tester and the evaluation on data/synthetic ----------------
     tester_phase(port)
 
+    # ---- 6d'. process workers; the CLI with the options in every mode ---------
+    process_loader_phase(port)
+    options_cli_phase(port)
+
     # ---- 6e. the nuScenes preset in bf16: val and test forward, the CLI ------
     nus_counts, nus_ms, nus_state = nuscenes_phase(port, smi)
+    nus_full_ms = nuscenes_full_phase(port, nus_state, nus_ms["val_bf16"], smi)
     nuscenes_cli_phase(port)
 
     # ---- 6f. the nuScenes preset's bf16 training: micro-steps, gradient, CLI --
     nus_train = nuscenes_train_phase(port, nus_state, smi)
+    remat = remat_phase(port, nus_state, smi)
     nuscenes_cli_train_phase(port)
 
     # ---- 6g. serving: Predictor, predict_stream, export, the tracker ---------
@@ -2382,6 +2738,10 @@ def main() -> None:
                                                export=True),
                 "default_f32": serving_phase(port, "default_f32", load_config(),
                                              model.state_dict(), 8, smi, export=False)}
+    # both ICPs at 50 iterations, exported: K4 inside the graph
+    cfg_icp = load_config(None, ["--pose_estimation.icp=true", "--tpointnet.icp=true"])
+    serve_ms["default_f32_icp"] = serving_phase(port, "default_f32_icp", cfg_icp,
+                                                model.state_dict(), 3, smi, export=True)
 
     # ---- 7. train path: the Trainer's micro-step at full width --------------
     from pcaccumulation_tpu_torch.train.loss import fuse_loss
@@ -2610,6 +2970,9 @@ def main() -> None:
         f"{nus_train['f32_ms']:.3f} nuscenes_train_bf16_gib {nus_train['bf16_gib']:.3f} "
         f"nuscenes_train_f32_gib {nus_train['f32_gib']:.3f} "
         + " ".join(f"serve_{c}_{k} {v:.3f}" for c, r in serve_ms.items() for k, v in r.items())
+        + " " + " ".join(f"option_{k}_ms {v:.3f}" for k, v in opt_ms.items())
+        + " " + " ".join(f"nuscenes_full_{k}_ms {v:.3f}" for k, v in nus_full_ms.items())
+        + " " + " ".join(f"nuscenes_train_{k} {v:.3f}" for k, v in remat.items())
         + f" on {smi}")
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

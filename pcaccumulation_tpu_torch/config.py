@@ -100,10 +100,9 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
 
 def check_supported(cfg: dict) -> None:
     """Raise NotImplementedError for a config value whose feature the port
-    does not have: a device mesh or ZeRO-1 (`parallel`), rematerialisation,
-    orbax checkpoints and process workers. The port runs on one card,
-    checkpoints with pickle and loads in threads; a value it would ignore is
-    refused instead."""
+    does not have: a device mesh or ZeRO-1 (`parallel`) and orbax
+    checkpoints. The port runs on one card and checkpoints with pickle; a
+    value it would ignore is refused instead."""
     par = cfg.get("parallel", {})
     train = cfg.get("train", {})
     refused = [f"parallel.{k}={par[k]!r}"
@@ -111,17 +110,12 @@ def check_supported(cfg: dict) -> None:
                if par.get(k, 1) != 1]
     if par.get("zero1", False):
         refused.append("parallel.zero1=True")
-    if train.get("remat", False):
-        refused.append("train.remat=True")
     if train.get("ckpt_backend", "pickle") != "pickle":
         refused.append(f"train.ckpt_backend={train['ckpt_backend']!r}")
-    refused += [f"{split}.worker_mode={cfg[split]['worker_mode']!r}"
-                for split in ("train", "val", "test")
-                if cfg.get(split, {}).get("worker_mode", "thread") != "thread"]
     if refused:
         raise NotImplementedError(
             "the PyTorch port does not implement " + ", ".join(refused)
-            + " (it runs on one card, checkpoints with pickle and loads in threads)")
+            + " (it runs on one card and checkpoints with pickle)")
 
 
 def save_config(cfg: dict, path: str) -> None:

@@ -41,7 +41,7 @@ SIGNATURES = {
                                           _P],
     },
     "nn": {
-        "nn_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P],
+        "nn_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P],
     },
 }
 

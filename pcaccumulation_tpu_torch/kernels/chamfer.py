@@ -13,10 +13,13 @@ tensor it runs `nn_plain`, the formula of the JAX package's
 `nn` is two steps, which a caller that asks many times against the same
 points (ICP) takes apart: `pack_references` / `pack_queries` move each
 problem's valid rows to the front of its row in their order (a stable sort
-on the mask) and read the largest count to the host (it sizes the kernel's
-grid), and `nn_packed` computes on the packed rows, through the PyTorch
-operator `torch.ops.pcacc.nn_packed` (`nn_packed_op`, which writes into its
-outputs d2 and idx).
+on the mask) and count them and take the largest count, on the device,
+and `nn_packed` computes on the packed rows, through the PyTorch operator
+`torch.ops.pcacc.nn_packed` (`nn_packed_op`, which writes into its outputs
+d2 and idx). Nothing is read to the host: the kernel's blocks read the
+counts on the device, so a traced graph (`torch.export`) can hold the
+call. `nn_scratch` gives the kernel's merge scratch, which a caller in a
+loop allocates once.
 
 The two versions round differently: the kernel computes sum (a - b)^2,
 which is exact to about one ulp of the distance, where the plain version
@@ -48,7 +51,7 @@ class References(NamedTuple):
     points: torch.Tensor  # [P, M, 4] float32: x, y, z, 0
     order: torch.Tensor   # [P, M] int32: the original index of each packed row
     count: torch.Tensor   # [P] int32: valid references
-    max_count: int        # the largest count
+    top: torch.Tensor     # [] int32: the largest count, on the device
 
 
 class Queries(NamedTuple):
@@ -56,24 +59,24 @@ class Queries(NamedTuple):
     valid: torch.Tensor   # [P, N] bool
     order: torch.Tensor   # [P, N] int32: the original index of each packed row
     count: torch.Tensor   # [P] int32: asked-for queries
-    max_count: int        # the largest count
+    top: torch.Tensor     # [] int32: the largest count, on the device
 
 
-def _valid_first(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
+def _valid_first(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(order [P, K] int32: the True rows' indices first, in their order,
-    then the others; count [P] int32 of True rows; the largest count, read
-    to the host)."""
+    then the others; count [P] int32 of True rows; their largest, [] int32),
+    all on the mask's device."""
     order = torch.sort((~mask).to(torch.uint8), dim=1, stable=True).indices
     count = mask.sum(1, dtype=torch.int32)
-    return order.to(torch.int32), count, int(count.max()) if count.numel() else 0
+    return order.to(torch.int32), count, count.amax() if len(count) else count.new_zeros(())
 
 
 def pack_references(b: torch.Tensor, b_valid: torch.Tensor) -> References:
     """b [P, M, 3], b_valid [P, M] bool -> `References`."""
     p, m, _ = b.shape
-    order, count, max_count = _valid_first(b_valid)
+    order, count, top = _valid_first(b_valid)
     packed = torch.gather(b, 1, order.long()[..., None].expand(p, m, 3))
-    return References(F.pad(packed, (0, 1)).contiguous(), order, count, max_count)
+    return References(F.pad(packed, (0, 1)).contiguous(), order, count, top)
 
 
 def pack_queries(a_valid: torch.Tensor) -> Queries:
@@ -95,11 +98,12 @@ def _plain_packed(a: torch.Tensor, refs: References, queries: Queries | None):
     """The plain version on packed references: |a|^2 + |b|^2 - 2 a.b as a
     float32 product, invalid references at 1e30, min and first argmin,
     over every query; then (1e30, 0) where a query is not asked for. It
-    skips the columns past the largest valid count (the order of the valid
-    ones is kept, so the first argmin is the same) and works over blocks of
-    queries, holding at most 2^25 pair distances at once."""
+    skips the columns past the largest valid count, read to the host (the
+    order of the valid ones is kept, so the first argmin is the same), and
+    works over blocks of queries, holding at most 2^25 pair distances at
+    once."""
     p, n, _ = a.shape
-    count, m = refs.count, refs.max_count
+    count, m = refs.count, int(refs.top)
     if m == 0:
         return (a.new_full((p, n), _BIG),
                 torch.zeros((p, n), dtype=torch.int32, device=a.device))
@@ -131,57 +135,77 @@ def nn_plain(a: torch.Tensor, b: torch.Tensor, b_valid: torch.Tensor,
                          None if a_valid is None else pack_queries(a_valid))
 
 
-@torch.library.custom_op("pcacc::nn_packed", mutates_args=("d2", "idx"), device_types="cuda")
-def nn_packed_op(a: torch.Tensor, ref_points: torch.Tensor, ref_count: torch.Tensor,
-                 ref_order: torch.Tensor, ref_max: int, q_valid: torch.Tensor | None,
-                 q_order: torch.Tensor | None, q_count: torch.Tensor | None, q_max: int,
-                 d2: torch.Tensor, idx: torch.Tensor) -> None:
+def nn_scratch(refs: References, n: int) -> torch.Tensor | None:
+    """The kernel's merge scratch for queries of n rows against `refs`:
+    [ceil(M / 2048), P, N, 2] int32 when the capacity M spans several
+    slices, else None (also on the CPU)."""
+    p, m, _ = refs.points.shape
+    slices = -(-m // _SLICE)
+    if refs.points.device.type != "cuda" or slices <= 1:
+        return None
+    return torch.empty((slices, p, n, 2), dtype=torch.int32, device=refs.points.device)
+
+
+@torch.library.custom_op("pcacc::nn_packed", mutates_args=("d2", "idx", "part"),
+                         device_types="cuda")
+def nn_packed_op(a: torch.Tensor, ref_points: torch.Tensor, ref_order: torch.Tensor,
+                 ref_count: torch.Tensor, ref_top: torch.Tensor, q_valid: torch.Tensor | None,
+                 q_order: torch.Tensor | None, q_count: torch.Tensor | None,
+                 q_top: torch.Tensor | None, d2: torch.Tensor, idx: torch.Tensor,
+                 part: torch.Tensor | None) -> None:
     """K4 as a PyTorch operator (`torch.ops.pcacc.nn_packed`): `nn_packed`
     on the fields of `References` and `Queries` (q_* None: every query),
-    written into d2 [P, N] float32 and idx [P, N] int32. On CUDA tensors:
-    the kernel, one count on `nn.launches`; a failed build or launch
-    raises. On CPU tensors: the plain version."""
+    written into d2 [P, N] float32 and idx [P, N] int32, with `part` the
+    merge scratch of `nn_scratch`. On CUDA tensors: the kernel (no host
+    read), one count on `nn.launches`; a failed build or launch raises. On
+    CPU tensors: the plain version."""
     p, n, _ = a.shape
-    n_rows = n if q_order is None else q_max
-    if ref_max == 0 or n_rows == 0:  # nothing to compute
+    m = ref_points.shape[1]
+    if m == 0:  # no reference row at all
         d2.fill_(_BIG)
         idx.zero_()
         return
+    slices = -(-m // _SLICE)
+    if (part is None) != (slices == 1) or (
+            part is not None and tuple(part.shape) != (slices, p, n, 2)):
+        raise ValueError(f"nn: merge scratch {None if part is None else tuple(part.shape)} "
+                         f"for {slices} slices of {p} x {n} queries (see nn_scratch)")
     a = a.contiguous()
-    slices = -(-ref_max // _SLICE)
-    part = (torch.empty((slices, p, n, 2), dtype=torch.int32, device=a.device)
-            if slices > 1 else None)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = build.load_library("nn").nn_forward(
         a.data_ptr(), ref_points.data_ptr(), ref_count.data_ptr(), ref_order.data_ptr(),
-        None if q_order is None else q_order.data_ptr(),
-        None if q_count is None else q_count.data_ptr(),
-        d2.data_ptr(), idx.data_ptr(), None if part is None else part.data_ptr(),
-        p, n, ref_points.shape[1], n_rows, ref_max, _SLICE, build.stream(a))
+        ref_top.data_ptr(), ptr(q_order), ptr(q_count), ptr(q_top), d2.data_ptr(),
+        idx.data_ptr(), ptr(part), p, n, m, _SLICE, build.stream(a))
     build.check(rc, "nn")
     nn.launches += 1
 
 
 @nn_packed_op.register_kernel("cpu")
-def _nn_packed_cpu(a, ref_points, ref_count, ref_order, ref_max, q_valid, q_order, q_count,
-                   q_max, d2, idx) -> None:
-    refs = References(ref_points, ref_order, ref_count, ref_max)
-    queries = None if q_order is None else Queries(q_valid, q_order, q_count, q_max)
+def _nn_packed_cpu(a, ref_points, ref_order, ref_count, ref_top, q_valid, q_order, q_count,
+                   q_top, d2, idx, part) -> None:
+    refs = References(ref_points, ref_order, ref_count, ref_top)
+    queries = None if q_order is None else Queries(q_valid, q_order, q_count, q_top)
     got = _plain_packed(a, refs, queries)
     d2.copy_(got[0])
     idx.copy_(got[1])
 
 
 @nn_packed_op.register_fake
-def _nn_packed_fake(a, ref_points, ref_count, ref_order, ref_max, q_valid, q_order, q_count,
-                    q_max, d2, idx) -> None:
+def _nn_packed_fake(a, ref_points, ref_order, ref_count, ref_top, q_valid, q_order, q_count,
+                    q_top, d2, idx, part) -> None:
     return None
 
 
 def nn_packed(a: torch.Tensor, refs: References, queries: Queries | None = None,
-              out: tuple[torch.Tensor, torch.Tensor] | None = None):
+              out: tuple[torch.Tensor, torch.Tensor] | None = None,
+              part: torch.Tensor | None = None):
     """`nn` on references (and asked-for queries) packed beforehand: a
     [P, N, 3] float32 -> (d2 [P, N] float32, idx [P, N] int32), written
-    into `out` if given (a caller in a loop, such as ICP, reuses them).
+    into `out` if given, with `part` as the kernel's merge scratch if given
+    (`nn_scratch`; a caller in a loop, such as ICP, allocates both once).
 
     A CPU tensor goes to the plain version; a CUDA tensor goes to the
     kernel or raises (the operator `nn_packed_op`). The kernel walks the
@@ -203,8 +227,10 @@ def nn_packed(a: torch.Tensor, refs: References, queries: Queries | None = None,
     if out is None:
         out = (torch.empty((p, n), dtype=a.dtype, device=dev),
                torch.empty((p, n), dtype=torch.int32, device=dev))
-    q = (None, None, None, 0) if queries is None else queries
-    nn_packed_op(a, refs.points, refs.count, refs.order, refs.max_count, *q, *out)
+    if part is None:
+        part = nn_scratch(refs, n)
+    q = (None, None, None, None) if queries is None else queries
+    nn_packed_op(a, *refs, *q, *out, part)
     return out
 
 

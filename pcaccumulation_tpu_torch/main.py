@@ -37,7 +37,8 @@ def build_loaders(cfg: dict) -> dict:
         loaders[split] = make_loader(ds, batch_size=cfg[split]["batch_size"],
                                      shuffle=split == "train",
                                      num_workers=cfg[split]["num_workers"],
-                                     drop_last=True, seed=cfg["misc"]["seed"])
+                                     drop_last=True, seed=cfg["misc"]["seed"],
+                                     mode=cfg[split].get("worker_mode", "thread"))
     return loaders
 
 

@@ -1,7 +1,12 @@
 """Ego-motion head: keypoint draw, soft correspondences (Sinkhorn) and
 weighted Kabsch over all frame pairs at once, then optionally the ego-pose
-ICP refinement (the port of the JAX package's `models/egomotion.py`;
-`seq_pose: skip` only).
+ICP refinement (the port of the JAX package's `models/egomotion.py`).
+
+The frame pairs follow `seq_pose` (`pair_lists`): `skip` pairs every frame
+with the anchor, `chain` each frame with the one before it (the poses to
+the anchor are left-composed), `full` every pair of frames (T(T-1)/2 of
+them; the poses to the anchor come from the anchor pairs). The keypoints
+are drawn once per (batch, frame) and reused by every pair.
 
 The keypoint draw takes n_kpts background pillars per (batch, frame):
 - deterministic: the first n_kpts in (y, x) BEV scan order, a shortfall
@@ -27,6 +32,25 @@ from pcaccumulation_tpu_torch.ops.numeric import safe_norm
 from pcaccumulation_tpu_torch.ops.sinkhorn import log_sinkhorn, square_distance
 
 _EPS = 1e-7
+
+
+def pair_lists(n_frames: int, strategy: str) -> tuple[list, list]:
+    """The (src, tgt) frame pairs of a strategy, and `chained_src`: for each
+    frame t > 0, the pair whose pose is frame t's first link to the anchor
+    (skip and full: the pair (t, 0); chain: (t, t-1))."""
+    if strategy == "skip":
+        pairs = [(t, 0) for t in range(1, n_frames)]
+        chained_src = list(range(len(pairs)))
+    elif strategy == "chain":
+        pairs = [(t, t - 1) for t in range(1, n_frames)]
+        chained_src = list(range(len(pairs)))
+    elif strategy == "full":
+        pairs = [(a + gap, a) for gap in range(1, n_frames)
+                 for a in range(n_frames - 1) if a + gap < n_frames]
+        chained_src = [pairs.index((t, 0)) for t in range(1, n_frames)]
+    else:
+        raise ValueError(f"seq_pose={strategy!r}")
+    return pairs, chained_src
 
 
 def draw_keypoints(frame_mask: torch.Tensor, n: int, deterministic: bool,
@@ -56,8 +80,12 @@ class EgoMotionHead(nn.Module):
                  seq_pose: str = "skip", deterministic_sampling: bool = False,
                  icp: bool = False, icp_threshold: float = 0.15, icp_max_iter: int = 50):
         super().__init__()
-        if seq_pose != "skip":
-            raise NotImplementedError(f"seq_pose={seq_pose!r}: only 'skip' is ported")
+        self.seq_pose = seq_pose
+        pairs, self.chained_src = pair_lists(n_sweeps, seq_pose)
+        # the pair lists on the model's device (no state: not in the state_dict)
+        self.register_buffer("src_f", torch.tensor([p[0] for p in pairs]), persistent=False)
+        self.register_buffer("tgt_f", torch.tensor([p[1] for p in pairs]), persistent=False)
+        self.register_buffer("anchor_pairs", torch.tensor(self.chained_src), persistent=False)
         self.icp = icp
         self.icp_threshold = icp_threshold
         self.icp_max_iter = icp_max_iter
@@ -89,8 +117,7 @@ class EgoMotionHead(nn.Module):
         t_frames = self.n_sweeps
         n = self.n_kpts
         dev = pillar_mean.device
-        src_f = torch.arange(1, t_frames, device=dev)  # skip: pairs (t, 0)
-        tgt_f = torch.zeros_like(src_f)
+        src_f, tgt_f = self.src_f, self.tgt_f  # [P]
         durations = (src_f - tgt_f).abs().to(torch.float32) / self.freq  # [P]
 
         frame_mask = (
@@ -146,7 +173,13 @@ class EgoMotionHead(nn.Module):
         n_ok = okf.sum() + _EPS
 
         eye = eye4.expand(b, 1, 4, 4)
-        chained_est = torch.cat([eye, pose_pairs], dim=1)  # [B, T, 4, 4]
+        if self.seq_pose == "chain":  # left-compose consecutive estimates
+            poses = [eye[:, 0]]
+            for p_idx in self.chained_src:
+                poses.append(se3.compose(poses[-1], pose_pairs[:, p_idx]))
+            chained_est = torch.stack(poses, dim=1)
+        else:
+            chained_est = torch.cat([eye, pose_pairs[:, self.anchor_pairs]], dim=1)  # [B, T, 4, 4]
         if self.icp and point_bg is not None:
             with record_function("motionnet.icp_ego"):
                 chained_est = refine_ego_poses(points, time_idx, point_valid, point_bg,
@@ -164,5 +197,7 @@ class EgoMotionHead(nn.Module):
             "ego_l2_loss": (l2_pp * okf).sum() / n_ok,
             "ego_rot_error": rot_err.mean() * scale,
             "ego_trans_error": trans_err.mean() * scale,
-            "perm_matrix": perm,
+            # the outlier loss reads the pairs that reach the anchor: all of
+            # skip's and chain's, full's anchor pairs
+            "perm_matrix": perm[:, self.anchor_pairs] if self.seq_pose == "full" else perm,
         }

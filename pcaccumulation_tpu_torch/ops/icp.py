@@ -5,8 +5,9 @@ K4, kernels/chamfer.py) per iteration serves all of them. The targets and
 the valid sources are packed once per call, before the loop, and the
 kernel computes only the valid sources' nearest neighbours. The iteration
 count is fixed, as the JAX package's `fori_loop`, and nothing is read back
-to the host inside the loop (the packing reads the two largest counts
-once); the two degeneracy holds are `torch.where` selections. ICP is not
+to the host (the kernel's grid comes from the shapes), so `torch.export`
+traces these functions; the two degeneracy holds are `torch.where`
+selections. ICP is not
 differentiable in the reference (Open3D on the host): the results here are
 computed without autograd, i.e. detached.
 """
@@ -15,7 +16,12 @@ from __future__ import annotations
 
 import torch
 
-from pcaccumulation_tpu_torch.kernels.chamfer import nn_packed, pack_queries, pack_references
+from pcaccumulation_tpu_torch.kernels.chamfer import (
+    nn_packed,
+    nn_scratch,
+    pack_queries,
+    pack_references,
+)
 from pcaccumulation_tpu_torch.ops import se3
 from pcaccumulation_tpu_torch.ops.kabsch import weighted_kabsch
 from pcaccumulation_tpu_torch.ops.segment import compact_mask_indices
@@ -52,8 +58,9 @@ def icp_point_to_point(src: torch.Tensor, tgt: torch.Tensor, src_valid: torch.Te
     refs, queries = pack_references(tgt, tgt_valid), pack_queries(src_valid)
     out = (torch.empty(src_valid.shape, dtype=torch.float32, device=src.device),
            torch.empty(src_valid.shape, dtype=torch.int32, device=src.device))
+    part = nn_scratch(refs, src.shape[1])
     for _ in range(max_iterations):
-        d2, idx = nn_packed(src_t, refs, queries, out)  # read within the iteration
+        d2, idx = nn_packed(src_t, refs, queries, out, part)  # read within the iteration
         w = (d2 < threshold * threshold).to(src.dtype) * w_valid
         matched = torch.gather(tgt, 1, idx.long()[..., None].expand(src_t.shape))
         rot, trans = weighted_kabsch(src_t, matched, w)

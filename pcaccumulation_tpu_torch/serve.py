@@ -312,17 +312,12 @@ class Predictor:
         reading a checkpoint.
 
         The clustering runs all its `cluster.bfs_iters` passes in the graph
-        (no host read; the same labels as eager serving's early exit). ICP
-        sizes its kernel's grid by counts read to the host, which a graph
-        cannot read: with `pose_estimation.icp` or `tpointnet.icp` on,
-        export raises NotImplementedError.
+        (no host read; the same labels as eager serving's early exit). With
+        `pose_estimation.icp` or `tpointnet.icp` on, the graph holds the
+        ICP loops unrolled, K4 (`torch.ops.pcacc.nn_packed`) called once
+        per iteration: its grid comes from the shapes, so no count is read
+        to the host.
         """
-        icp = [k for k in ("pose_estimation", "tpointnet") if self.cfg[k].get("icp", False)]
-        if icp:
-            raise NotImplementedError(
-                "export of the ICP refinement is not ported (" + ", ".join(
-                    f"{k}.icp=True" for k in icp) + "): its kernel's grid is sized by counts "
-                "read to the host; serve it with Predictor, or export with ICP off")
         dbatch = self._to_device(self._prep(*self._dummy_scan()))
         args = (dbatch,) if self._scores is None else (dbatch, self._scores)
         with torch.no_grad():

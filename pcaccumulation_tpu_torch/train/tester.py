@@ -97,7 +97,8 @@ class Tester:
         for scene in scenes:
             ds = SceneDataset(cfg, "test", augment=False, scene_name=scene)
             loader = make_loader(ds, batch_size=1, shuffle=False,
-                                 num_workers=cfg["test"]["num_workers"], drop_last=False)
+                                 num_workers=cfg["test"]["num_workers"], drop_last=False,
+                                 mode=cfg["test"].get("worker_mode", "thread"))
             buf = {k: [] for k in DUMP_KEYS}
 
             def consume(out, batch):

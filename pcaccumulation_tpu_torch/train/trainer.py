@@ -19,14 +19,26 @@
 `Trainer` runs the epoch loop: train and val phases, host meters, the
 rolling `best_loss` / `latest` / `best_metric` checkpoints, resume, and
 one seeded `torch.Generator` per step for the random keypoint draw.
+
+`train.remat` recomputes the forward and the loss in the backward pass
+instead of keeping their activations (`torch.utils.checkpoint`, the
+counterpart of the JAX package's `jax.checkpoint(loss_fn,
+policy=nothing_saveable)`). The recompute must compute what the forward
+did: the keypoint draw's scores are drawn before the checkpointed region
+(the checkpoint restores only the default generators), and the train-mode
+BatchNorms' running statistics, which the recompute would update a second
+time, are put back after it. A remat step's gradients and statistics are
+those of a plain step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pcaccumulation_tpu_torch import resolve_device, to_device
 from pcaccumulation_tpu_torch.config import check_supported
@@ -131,6 +143,19 @@ class Optimizer:
         self.n_skipped = state["n_skipped"]
 
 
+@contextlib.contextmanager
+def _buffers_kept(module: torch.nn.Module):
+    """Put the module's buffers (the BatchNorms' running statistics) back
+    as they were on entry when the block ends."""
+    saved = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in saved:
+                b.copy_(v)
+
+
 def _leaves(stats: dict, prefix=()):
     """(path, tensor) pairs of a nested stats dict, in a fixed order."""
     for k in sorted(stats):
@@ -174,6 +199,7 @@ class Trainer:
         self.iter_size = cfg["train"]["iter_size"]
         self.max_epoch = cfg["train"]["max_epoch"]
         self.metric_key = cfg["train"]["metric"]
+        self.remat = cfg["train"].get("remat", False)
         self.best_loss = 1e5
         self.best_metric = -1e5
         self.start_epoch = 1
@@ -221,11 +247,28 @@ class Trainer:
         accumulate-or-update. batch: tensors on the device. Under
         `precision.compute_dtype: bfloat16` the model computes in bf16 where
         the JAX package does; its parameters, their gradients and the
-        optimizer's state stay float32."""
+        optimizer's state stay float32. With `train.remat` the forward and the
+        loss are recomputed in the backward pass (see the module docstring)."""
         self.model.train()
-        results = self.model(batch, mode="train", generator=generator)
-        stats = fuse_loss(results, batch, self.cfg["loss"],
-                          self.cfg["capacity"]["max_instances"])
+
+        def forward_loss(batch, kpt_scores):
+            results = self.model(batch, mode="train", generator=generator,
+                                 kpt_scores=kpt_scores)
+            return fuse_loss(results, batch, self.cfg["loss"],
+                             self.cfg["capacity"]["max_instances"])
+
+        if self.remat:
+            scores = None
+            if not self.cfg["pose_estimation"].get("deterministic_sampling", False):
+                # the draw of `draw_keypoints`, taken here, outside the recompute
+                b, m = batch["pillar_valid"].shape
+                scores = torch.rand((b, self.cfg["voxel_generator"]["n_sweeps"], m),
+                                    generator=generator, device=self.device)
+            stats = checkpoint(forward_loss, batch, scores, use_reentrant=False,
+                               context_fn=lambda: (contextlib.nullcontext(),
+                                                   _buffers_kept(self.model)))
+        else:
+            stats = forward_loss(batch, None)
         for p in self.params:
             p.grad = None
         stats["loss"].backward()

@@ -12,6 +12,12 @@ model) loads. Layouts:
         [in, out, H, W] with the taps flipped spatially (flax's transpose
         conv is a fractionally strided convolution, torch's the adjoint)
   BatchNorm scale / bias / mean / var    -> weight / bias / running_mean / running_var
+
+The STPN's temporal convs `init_conv{i}` go to `motionhead.init_conv.{2i}`.
+With `stpn.n_band_layers` k < 4 the JAX STPN has 3x3 convs `post_conv{i}`
+(i = k..3) after its temporal max, which the reference model lacks (so the
+JAX package's `torch_convert.py` names none); the port names them
+`motionhead.post_conv{i}.weight` / `.bias` (a Conv2d).
 """
 
 from __future__ import annotations
@@ -96,7 +102,10 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tens
 
     mh, mh_stats = params["motionhead"], batch_stats["motionhead"]
     for i in range(4):
-        wr.conv3d(f"motionhead.init_conv.{2 * i}", mh[f"init_conv{i}"])
+        if f"init_conv{i}" in mh:
+            wr.conv3d(f"motionhead.init_conv.{2 * i}", mh[f"init_conv{i}"])
+        else:
+            wr.conv2d(f"motionhead.post_conv{i}", mh[f"post_conv{i}"])
     wr.unet_levels("motionhead", mh["unet"])
     wr.mlp("motionhead.positional_encoding", mh["positional_encoding"])
     wr.linear("motionhead.final_proj.0", mh["final_proj"])

@@ -1,11 +1,13 @@
 """The port refuses config values whose feature it does not implement: the
 CLI, the Trainer and the Tester raise NotImplementedError before any work,
-instead of ignoring the value."""
+instead of ignoring the value. The single-card options it does implement
+pass the check and build a Trainer."""
 
 from pathlib import Path
 
 import pytest
 
+from pcaccumulation_tpu_torch import build_model
 from pcaccumulation_tpu_torch.config import check_supported, load_config
 from pcaccumulation_tpu_torch.main import main
 from pcaccumulation_tpu_torch.train import tester
@@ -21,11 +23,7 @@ DEFAULT = str(REPO / "configs" / "default.yaml")
     "--parallel.frame_devices=2",
     "--parallel.spatial_devices=2",
     "--parallel.zero1=true",
-    "--train.remat=true",
     "--train.ckpt_backend=orbax",
-    "--train.worker_mode=process",
-    "--val.worker_mode=process",
-    "--test.worker_mode=process",
 ])
 def test_unported_config_value_is_refused(override, tmp_path, monkeypatch):
     key = override[2:].split("=")[0]
@@ -40,6 +38,27 @@ def test_unported_config_value_is_refused(override, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match=key):
         main(["main", DEFAULT, "1", "1", "--misc.device=cpu", override])
     assert not (tmp_path / "snapshot").exists()  # refused before the run directory
+
+
+@pytest.mark.parametrize("override", [
+    "--train.remat=true",
+    "--train.worker_mode=process",
+    "--val.worker_mode=process",
+    "--test.worker_mode=process",
+    "--pose_estimation.seq_pose=chain",
+    "--pose_estimation.seq_pose=full",
+    "--stpn.n_band_layers=1",
+    "--stpn.n_band_layers=2",
+    "--stpn.n_band_layers=3",
+])
+def test_ported_option_passes_the_check(override, tmp_path):
+    """Each single-card option of configs/default.yaml that the port
+    implements passes `check_supported` and builds a model and a Trainer."""
+    cfg = load_config(DEFAULT, overrides=[override])
+    check_supported(cfg)
+    trainer = Trainer(cfg, build_model(cfg, device="cpu"), {}, save_dir=str(tmp_path),
+                      device="cpu")
+    assert trainer.remat == (override == "--train.remat=true")
 
 
 @pytest.mark.parametrize("path", ["default.yaml", "synthetic.yaml"])

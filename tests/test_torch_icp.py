@@ -37,7 +37,9 @@ def T(a):
 
 def _nn_case(kind: str, seed: int = 0, p: int = 3, n: int = 300, m: int = 400):
     """Queries and references in a 10 m box; masks, all refs invalid in
-    one problem, or exact ties (duplicated references, queries on them)."""
+    one problem, exact ties (duplicated references, queries on them), or
+    per-problem counts that take one slice of K4, several and none in one
+    call ("slices")."""
     rng = np.random.default_rng(seed)
     a = (rng.random((p, n, 3)) * 10).astype(np.float32)
     b = (rng.random((p, m, 3)) * 10).astype(np.float32)
@@ -51,6 +53,11 @@ def _nn_case(kind: str, seed: int = 0, p: int = 3, n: int = 300, m: int = 400):
         valid[:, 120] = True
         b[:, 130] = b[:, 120]            # an invalid duplicate after a valid one
         valid[:, 130] = False
+    if kind == "slices":
+        valid[0, 1000:] = False
+        valid[1] = True
+        if p > 2:
+            valid[-1] = False
     return a, b, valid
 
 
@@ -425,7 +432,7 @@ def _nn_tolerance(a, b, idx):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [False, True], ids=["all_queries", "query_mask"])
-@pytest.mark.parametrize("kind", ["masks", "all_invalid", "ties"])
+@pytest.mark.parametrize("kind", ["masks", "all_invalid", "ties", "slices"])
 @pytest.mark.parametrize("p,n,m", [(3, 300, 400), (4, 5000, 3000), (128, 1024, 1024),
                                    (2, 3000, 9000)])
 def test_nn_kernel_matches_plain(cuda, kind, p, n, m, masked):
@@ -434,7 +441,10 @@ def test_nn_kernel_matches_plain(cuda, kind, p, n, m, masked):
     (the difference form and the expansion can order a near tie either
     way); exact ties go to the lower index; no valid reference: 1e30, 0;
     with a query mask, the queries not asked for are (1e30, 0). m = 9000
-    spreads the references over several blocks, whose minima are merged."""
+    spreads the references over several blocks, whose minima are merged;
+    "slices" mixes, in one call, a problem in one slice (written without
+    the merge), one over several and one with none (the grid comes from
+    the shapes, each block reads its problem's counts)."""
     a, b, valid = (T(x).to(cuda) for x in _nn_case(kind, seed=9, p=p, n=n, m=m))
     a = a * 5.0 + 20.0  # up to 70 m from the origin
     b = b * 5.0 + 20.0

@@ -291,11 +291,27 @@ def test_export_matches_live_predictor(served, tmp_path):
     )) == EXPORT_FORMAT_VERSION
 
 
-def test_export_refuses_icp(served, tmp_path):
+def test_export_with_icp_matches_live_predictor(served, tmp_path):
+    """With `pose_estimation.icp` and `tpointnet.icp` on, the CPU artifact's
+    graph holds K4's operator once per ICP iteration (the ego and the
+    instance loops, unrolled), and its outputs equal the live Predictor's
+    with ICP on (labels exactly, floats within 1e-6), which differ from
+    ICP off."""
     cfg = copy.deepcopy(served["cfg"])
-    cfg["tpointnet"]["icp"] = True
-    with pytest.raises(NotImplementedError, match="tpointnet.icp"):
-        Predictor(cfg, device="cpu").export(str(tmp_path / "icp.pt2"))
+    cfg["pose_estimation"].update(icp=True, icp_max_iter=3)
+    cfg["tpointnet"].update(icp=True, icp_max_iter=2, icp_max_points=256)
+    live = Predictor(cfg, state_dict=served["port"].model.state_dict(), device="cpu")
+    path = str(tmp_path / "icp.pt2")
+    live.export(path)
+    exported = ExportedPredictor(path, device="cpu")
+    assert exported._program.code.count("torch.ops.pcacc.nn_packed") == 5
+    got, want = exported.predict(*served["scans"][0]), live.predict(*served["scans"][0])
+    for key in LABEL_KEYS + ("points",):
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    for key in FLOAT_KEYS:
+        np.testing.assert_allclose(got[key], want[key], atol=1e-6, rtol=0, err_msg=key)
+    assert np.abs(want["ego_motion"] - served["port_out"][0]["ego_motion"]).max() > 0
+    assert want["inst_labels"].max() > 0  # the instance ICP had instances to refine
 
 
 def test_random_draw_is_fixed_per_predictor(served):
