@@ -69,7 +69,16 @@ the ego head sees background:
   on the same weights, batch and generator seed (every gradient leaf and
   running statistic), both timed with peak memory; forked loader workers
   (`worker_mode: process`) against threads and under the Trainer; the CLI
-  in train, val and test mode with these options.
+  in train, val and test mode with these options;
+- the Trainer's step reproducible (`determinism_phase`: default float32 and
+  nuScenes bf16, two steps bit-equal, the ops torch warns about, the cost
+  of deterministic algorithms and the noise-leaf split under torch's
+  default ones); the data-parallel path in an in-process NCCL group of
+  world 1 (`ddp_world1_phase`: with and without ZeRO-1, bit-equal to the
+  plain step, K1 and K2 launched on it, timed beside it); and
+  `torchrun --nproc_per_node=1` over the CLI on the nuScenes preset with
+  its orbax (torch.distributed.checkpoint) checkpoints, read back by the
+  Tester (`torchrun_cli_phase`).
 Any failure exits non-zero. The last two lines of stdout are the `kernels`
 JSON line and the result line `{"ok": true, "device": {...}}`. Without a
 CUDA device it exits 1 and prints no result. With `--only kernels` it stops
@@ -2330,14 +2339,12 @@ def remat_phase(port, state: dict, smi: str) -> dict:
     """`train.remat` on the nuScenes bf16 train micro-step (B=4, iter_size
     2, train-mode BN, the random keypoint draw): from the same weights
     (`state`), batch and generator seed, one plain micro-step and one remat
-    micro-step under `torch.use_deterministic_algorithms` (the backward's
-    scatter-adds otherwise add in an order that changes from call to call,
-    so that two plain steps differ at a third of the leaves): every
-    gradient leaf and every running statistic of the remat step equal to
-    the plain step's, bit for bit, and a second plain step's too. Then
-    both timed with PyTorch's default algorithms (warm-up, 3 micro-steps
-    each, order plain, remat, remat, plain) with their peak memory. Returns
-    the measures."""
+    micro-step (the Trainer's step runs under
+    `torch.use_deterministic_algorithms`): every gradient leaf and every
+    running statistic of the remat step equal to the plain step's, bit for
+    bit, and a second plain step's too. Then both timed (warm-up, 3
+    micro-steps each, order plain, remat, remat, plain) with their peak
+    memory. Returns the measures."""
     import copy
     import warnings
 
@@ -2426,6 +2433,327 @@ def remat_phase(port, state: dict, smi: str) -> dict:
     return {"plain_ms": statistics.median([res["plain"][0], res["plain_2"][0]]),
             "remat_ms": statistics.median([res["remat"][0], res["remat_2"][0]]),
             "plain_gib": res["plain"][2], "remat_gib": res["remat"][2]}
+
+
+NOISE_NORM = 1e-3  # tests/test_parallel.py: a leaf whose larger norm is under it is noise
+
+
+def _step_grads(port, cfg: dict, state: dict, batch: dict, run_dir: str) -> tuple:
+    """One `Trainer.train_step` from `state` on `batch` (generator seed
+    (1, train, 0)): (loss, gradient leaves, running statistics)."""
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    model = port.build_model(cfg)
+    model.load_state_dict(state)
+    tr = Trainer(cfg, model, {"train": [batch, batch]}, save_dir=run_dir)
+    st = tr.train_step(batch, tr.step_generator(1, "train", 0))
+    torch.cuda.synchronize()
+    return (float(st["loss"]),
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if p.grad is not None},
+            {n: b.clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var", "num_batches_tracked"))})
+
+
+def noise_split(g0: dict, g1: dict) -> tuple:
+    """Two steps' gradients: (noise leaves, bit-equal leaves among the
+    others, the others, worst rel-norm among the others and its leaf). A
+    noise leaf's larger norm is under NOISE_NORM (a bias before a train-mode
+    BatchNorm: zero in exact arithmetic, what the card computes there is
+    cancellation residue)."""
+    noise = [n for n in g0 if max(float(g0[n].norm()), float(g1[n].norm())) < NOISE_NORM]
+    rest = [n for n in g0 if n not in noise]
+    same = sum(torch.equal(g0[n], g1[n]) for n in rest)
+    worst = max(((float((g0[n] - g1[n]).double().norm())
+                  / max(float(g0[n].double().norm()), float(g1[n].double().norm()), 1e-30), n)
+                 for n in rest), default=(0.0, ""))
+    return len(noise), same, len(rest), worst
+
+
+def determinism_phase(port, nus_state: dict, smi: str) -> dict:
+    """The Trainer's step is reproducible on the card: for the default
+    config (float32, flax's seeded init) and the nuScenes preset (bf16, the
+    nuScenes phase's weights), B=4, train-mode BN, the random keypoint
+    draw:
+    - the ops torch warns about under `use_deterministic_algorithms(True,
+      warn_only=True)` in one micro-step's forward, FuseLoss and backward
+      (none expected: the Trainer runs them under the strict flag);
+    - two `Trainer.train_step`s from the same weights on the same batch:
+      every gradient leaf and running statistic bit-equal;
+    - two steps with torch's default algorithms (the Trainer's context
+      replaced by a null one): the leaves split by `noise_split`;
+    - the step's ms with and without deterministic algorithms (order det,
+      default, default, det; 3 timed steps each after a warm-up; medians
+      of CUDA events). Returns the ms."""
+    import contextlib
+    import warnings
+
+    import pcaccumulation_tpu_torch.train.trainer as trainer_mod
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.profile_forward import default_scenes
+    from pcaccumulation_tpu_torch.train.loss import fuse_loss
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_det_")
+    res = {}
+    strict = trainer_mod.deterministic_algorithms
+    try:
+        for name, path in (("default_f32", None), ("nuscenes_bf16", "configs/nuscene.yaml")):
+            cfg = load_config(path, ["--misc.mode=train"])
+            if path is None:
+                model = port.build_model(cfg)
+                flax_init(model, SEED)
+                state = {k: v.clone() for k, v in model.state_dict().items()}
+            else:
+                state = nus_state
+            batch = port.to_device(collate(default_scenes(cfg, cfg["train"]["batch_size"])))
+
+            # the census: one micro-step's ops under the warning form of the flag
+            model = port.build_model(cfg).train()
+            model.load_state_dict(state)
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    gen = torch.Generator(device="cuda").manual_seed(SEED)
+                    fuse_loss(model(batch, mode="train", generator=gen), batch, cfg["loss"],
+                              cfg["capacity"]["max_instances"])["loss"].backward()
+                    torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            warned = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                             if "deterministic" in str(w.message)})
+            del model
+
+            l0, g0, b0 = _step_grads(port, cfg, state, batch, run_dir)
+            l1, g1, b1 = _step_grads(port, cfg, state, batch, run_dir)
+            diff = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+            diff_b = [n for n in b0 if not torch.equal(b0[n], b1[n])]
+            if warned or diff or diff_b or l0 != l1:
+                fail(f"{name}: the Trainer's step is not reproducible: ops warned {warned}, "
+                     f"losses {l0} / {l1}, {len(diff)} gradient leaves differ ({diff[:4]}), "
+                     f"running statistics {diff_b[:4]}")
+            trainer_mod.deterministic_algorithms = contextlib.nullcontext
+            try:
+                _, d0, _ = _step_grads(port, cfg, state, batch, run_dir)
+                _, d1, _ = _step_grads(port, cfg, state, batch, run_dir)
+            finally:
+                trainer_mod.deterministic_algorithms = strict
+            n_noise, same, n_rest, worst = noise_split(d0, d1)
+
+            model = port.build_model(cfg)
+            model.load_state_dict(state)
+            tr = Trainer(cfg, model, {"train": [batch, batch]}, save_dir=run_dir)
+            times = {"det": [], "default": []}
+            for mode in ("det", "default", "default", "det"):
+                trainer_mod.deterministic_algorithms = (strict if mode == "det"
+                                                        else contextlib.nullcontext)
+                try:
+                    tr.train_step(batch, tr.step_generator(0, "train", 0))
+                    for i in range(3):
+                        start, end = (torch.cuda.Event(enable_timing=True),
+                                      torch.cuda.Event(enable_timing=True))
+                        torch.cuda.synchronize()
+                        start.record()
+                        tr.train_step(batch, tr.step_generator(1, "train", i))
+                        end.record()
+                        times[mode].append(sync_ms(start, end))
+                finally:
+                    trainer_mod.deterministic_algorithms = strict
+            del model, tr
+            det_ms, def_ms = (statistics.median(times[k]) for k in ("det", "default"))
+            res[f"{name}_det_ms"], res[f"{name}_default_ms"] = det_ms, def_ms
+            log(f"determinism ({name}, B={cfg['train']['batch_size']}, train-mode BN, random "
+                f"draw): ops warned under warn_only: {len(warned)}; two Trainer steps: loss "
+                f"{l0:.6f} twice, all {len(g0)} gradient leaves and {len(b0)} running "
+                f"statistics bit-equal. Default algorithms: {n_noise} leaves under the noise "
+                f"norm {NOISE_NORM:g}; of the other {n_rest}, {same} bit-equal, worst rel-norm "
+                f"{worst[0]:.3e} ({worst[1]}). Step ms (CUDA events, medians of 6): "
+                f"deterministic {det_ms:.3f} ({', '.join(f'{t:.3f}' for t in times['det'])}), "
+                f"default {def_ms:.3f} ({', '.join(f'{t:.3f}' for t in times['default'])}), "
+                f"cost {100 * (det_ms / def_ms - 1):+.1f} % on {smi}")
+    finally:
+        trainer_mod.deterministic_algorithms = strict
+        shutil.rmtree(run_dir, ignore_errors=True)
+    log(f"determinism phase: {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def ddp_world1_phase(port, nus_state: dict, smi: str) -> dict:
+    """Part of the data-parallel path on the card: an in-process NCCL group
+    of world 1 (`parallel.mesh.init_distributed`), the nuScenes bf16
+    micro-step (B=4, iter_size 2, the random draw) through the Trainer in
+    the group, with and without `parallel.zero1`, against the plain
+    deterministic step (no group) from the same weights on the same batches:
+    the reduced gradient of the first micro-step, the running statistics
+    and the parameters after one update bit-equal; K1 and K2 launches on
+    the group's path (counts zeroed before its timed micro-steps); ms of
+    both (plain, DDP, DDP + zero1 untimed, DDP, plain). Returns the ms and
+    the counts."""
+    import torch.distributed as dist
+
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks, row_shift_blocks_backward
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_backward
+    from pcaccumulation_tpu_torch.parallel import mesh
+    from pcaccumulation_tpu_torch.profile_forward import default_scenes
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = load_config("configs/nuscene.yaml", ["--misc.mode=train"])
+    bsz = cfg["train"]["batch_size"]
+    scenes = default_scenes(cfg, 2 * bsz)
+    batches = [port.to_device(collate(scenes[i * bsz:(i + 1) * bsz])) for i in range(2)]
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_ddp_")
+    kernels = (seg_pool, seg_pool_backward, row_shift_blocks, row_shift_blocks_backward)
+
+    def run(c, n_timed=0):
+        model = port.build_model(c)
+        model.load_state_dict(nus_state)
+        tr = Trainer(c, model, {"train": batches}, save_dir=run_dir)
+        seen = []
+        update = tr.optimizer.update
+
+        def record(grads):  # the first micro-step's gradient, as the optimizer sees it
+            if not seen:
+                seen.append([g.clone() for g in grads])
+            return update(grads)
+
+        tr.optimizer.update = record
+        for i in range(2):
+            tr.train_step(batches[i], tr.step_generator(1, "train", i))
+        torch.cuda.synchronize()
+        out = {"grads": seen[0], "params": [p.detach().clone() for p in tr.params],
+               "buffers": [b.clone() for b in model.buffers()], "group": tr.group}
+        for fn in kernels:
+            fn.launches = fn.launches_bf16 = 0
+        times = []
+        for i in range(n_timed):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            tr.train_step(batches[i % 2], tr.step_generator(2, "train", i))
+            end.record()
+            times.append(sync_ms(start, end))
+        out["times"] = times
+        out["counts"] = {f"{fn.__name__}{sfx}": getattr(fn, "launches" + sfx)
+                         for fn in kernels for sfx in ("", "_bf16")}
+        return out
+
+    def same(a, b):
+        return all(torch.equal(x, y) for key in ("grads", "params", "buffers")
+                   for x, y in zip(a[key], b[key]))
+
+    cfg_z = load_config("configs/nuscene.yaml", ["--misc.mode=train", "--parallel.zero1=true"])
+    try:
+        plain = run(cfg, 2)
+        dev = mesh.init_distributed(init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
+                                    rank=0, timeout_s=120)
+        try:
+            backend = dist.get_backend()
+            ddp, ddp_z, ddp2 = run(cfg, 2), run(cfg_z), run(cfg, 2)
+        finally:
+            dist.destroy_process_group()
+        plain2 = run(cfg, 2)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    if plain["group"] is not None or ddp["group"] is None or backend != "nccl" or (
+            dev != torch.device("cuda", 0)):
+        fail(f"DDP world 1: groups {plain['group']} / {ddp['group']}, backend {backend}, "
+             f"device {dev}")
+    for name, run_ in (("DDP", ddp), ("DDP + zero1", ddp_z), ("DDP again", ddp2)):
+        if not same(plain, run_):
+            fail(f"DDP world 1: the {name} step is not bit-equal to the plain step")
+    want = {"seg_pool": 0, "seg_pool_bf16": 2 * (cfg["pillar_encoder"]["depth"] - 1),
+            "seg_pool_backward": 0, "seg_pool_backward_bf16": 2 * (cfg["pillar_encoder"]["depth"] - 1),
+            "row_shift_blocks": 0, "row_shift_blocks_bf16": 6, "row_shift_blocks_backward": 0,
+            "row_shift_blocks_backward_bf16": 0}
+    if ddp["counts"] != want:
+        fail(f"DDP world 1: 2 micro-steps launched {ddp['counts']}, want {want}")
+    p_ms = statistics.median(plain["times"] + plain2["times"])
+    d_ms = statistics.median(ddp["times"] + ddp2["times"])
+    log(f"DDP world 1 (in-process NCCL group, nuScenes bf16 micro-step, B={bsz}, iter_size 2, "
+        f"random draw): the first micro-step's reduced gradient, the running statistics and "
+        f"the parameters after one update bit-equal to the plain step's, with and without "
+        f"zero1; launches in 2 micro-steps {ddp['counts']}; ms (CUDA events, medians of 4): "
+        f"plain {p_ms:.3f} ({', '.join(f'{t:.3f}' for t in plain['times'] + plain2['times'])}), "
+        f"DDP {d_ms:.3f} ({', '.join(f'{t:.3f}' for t in ddp['times'] + ddp2['times'])}), "
+        f"overhead {100 * (d_ms / p_ms - 1):+.1f} % on {smi} ({time.perf_counter() - t0:.1f} s)")
+    return {"plain_ms": p_ms, "ddp_ms": d_ms, "counts": ddp["counts"]}
+
+
+def torchrun_cli_phase(port) -> None:
+    """`torchrun --nproc_per_node=1 -m pcaccumulation_tpu_torch.main
+    configs/nuscene.yaml 4 2 --misc.mode=train` (through `python -m
+    torch.distributed.run`, torchrun's module; `--train.max_epoch=2`: one
+    epoch) in a subprocess, over 8 train and 1 val synthetic samples of 11
+    sweeps at 20 Hz, with the preset's own `train.ckpt_backend: orbax`:
+    rc 0, the rank's NCCL group in its log, `.dcp` checkpoints; then the
+    CLI's test mode with `--misc.pretrain` on the `.dcp` checkpoint, its
+    weights loaded."""
+    from pcaccumulation_tpu_torch.data.synthetic import generate_sample
+    from pcaccumulation_tpu_torch.main import main as cli_main
+
+    t0 = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
+    cwd = os.getcwd()
+    try:
+        data = os.path.join(tmp, "data")
+        rel = []
+        for i in range(9):
+            os.makedirs(os.path.join(data, f"scene_{i:04d}"))
+            rel.append(f"scene_{i:04d}/sample_00000.npz")
+            np.savez_compressed(os.path.join(data, rel[-1]),
+                                **generate_sample(SEED + 300 + i, n_frames=11, freq=20.0))
+        for split, sel in (("train", rel[:8]), ("val", rel[8:]), ("test", rel[8:])):
+            with open(os.path.join(data, f"{split}_info.txt"), "w") as f:
+                f.write("\n".join(sel) + "\n")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+               f"--master_port={free_port()}", "-m", "pcaccumulation_tpu_torch.main",
+               os.path.join(repo, "configs", "nuscene.yaml"), "4", "2", "--misc.mode=train",
+               "--train.max_epoch=2", "--misc.exp_name=nuscene_ddp",
+               f"--path.dataset_base={data}"]
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=400)
+        run = os.path.join(tmp, "snapshot", "nuscene_ddp")
+        found = sorted(os.listdir(run)) if os.path.isdir(run) else []
+        if proc.returncode != 0 or "model_latest.ckpt.dcp" not in found or any(
+                f.endswith(".ckpt") for f in found):
+            fail(f"torchrun CLI: rc {proc.returncode}, run directory {found}\n"
+                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        with open(os.path.join(run, "log")) as f:
+            epoch_log = f.read()
+        ckpt = os.path.join(run, "model_latest.ckpt")
+        if "train Epoch: 1" not in epoch_log or "model_latest.ckpt.dcp\n" not in epoch_log:
+            fail(f"torchrun CLI: the log lacks the epoch or the .dcp save:\n{epoch_log[-2000:]}")
+        os.chdir(tmp)
+        rc = cli_main(["main", os.path.join(repo, "configs", "nuscene.yaml"), "1", "1",
+                       "--misc.mode=test", "--misc.exp_name=nuscene_ddp_test",
+                       f"--misc.pretrain={ckpt}", f"--path.dataset_base={data}"])
+        with open(os.path.join(tmp, "snapshot", "nuscene_ddp_test", "log")) as f:
+            test_log = f.read()
+        if rc != 0 or f"Loaded checkpoint {ckpt}" not in test_log:
+            fail(f"the Tester on the torchrun run's .dcp checkpoint: rc {rc}\n{test_log[-2000:]}")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"torchrun CLI (python -m torch.distributed.run --nproc_per_node=1 -m "
+        f"pcaccumulation_tpu_torch.main configs/nuscene.yaml 4 2 --misc.mode=train, no "
+        f"checkpoint override): rc 0, run directory {found}; the Tester read "
+        f"model_latest.ckpt.dcp through --misc.pretrain ({time.perf_counter() - t0:.1f} s)")
 
 
 def process_loader_phase(port) -> None:
@@ -2732,6 +3060,11 @@ def main() -> None:
     remat = remat_phase(port, nus_state, smi)
     nuscenes_cli_train_phase(port)
 
+    # ---- 6f'. reproducible steps; the data-parallel path; the torchrun CLI --------
+    det_ms = determinism_phase(port, nus_state, smi)
+    ddp = ddp_world1_phase(port, nus_state, smi)
+    torchrun_cli_phase(port)
+
     # ---- 6g. serving: Predictor, predict_stream, export, the tracker ---------
     cfg_s = load_config("configs/nuscene.yaml", ["--train.ckpt_backend=pickle"])
     serve_ms = {"nuscenes_bf16": serving_phase(port, "nuscenes_bf16", cfg_s, nus_state, 8, smi,
@@ -2973,6 +3306,8 @@ def main() -> None:
         + " " + " ".join(f"option_{k}_ms {v:.3f}" for k, v in opt_ms.items())
         + " " + " ".join(f"nuscenes_full_{k}_ms {v:.3f}" for k, v in nus_full_ms.items())
         + " " + " ".join(f"nuscenes_train_{k} {v:.3f}" for k, v in remat.items())
+        + " " + " ".join(f"train_{k} {v:.3f}" for k, v in det_ms.items())
+        + f" nuscenes_ddp_world1_ms {ddp['ddp_ms']:.3f} nuscenes_plain_ms {ddp['plain_ms']:.3f}"
         + f" on {smi}")
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -7,15 +7,23 @@ and gradients that launch them, for the segment pool (kernels/segscan.py),
 the shear-warp row shift (kernels/row_shift.py) and the nearest neighbour
 of ICP and the Chamfer distance (kernels/chamfer.py). Entry points run on
 the card unless the caller asks for the CPU with `device="cpu"`; without a
-CUDA device they raise instead of falling back.
+CUDA device they raise instead of falling back. Training runs in one
+process or data-parallel, one process per card (parallel/mesh.py).
 """
 
 from __future__ import annotations
 
-import numpy as np
-import torch
+import os
 
-from pcaccumulation_tpu_torch.models.motionnet import MotionNet
+# cuBLAS takes its workspace configuration from the environment when its
+# first handle is made; deterministic algorithms (the Trainer's steps) need
+# this one, and torch raises inside the first product without it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from pcaccumulation_tpu_torch.models.motionnet import MotionNet  # noqa: E402
 
 __all__ = ["MotionNet", "build_model", "resolve_device", "to_device"]
 

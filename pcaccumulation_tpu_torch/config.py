@@ -98,24 +98,37 @@ def load_config(path: str | None = None, overrides: list[str] | None = None) -> 
     return derive(cfg)
 
 
-def check_supported(cfg: dict) -> None:
+def _running_world() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def check_supported(cfg: dict, world_size: int | None = None) -> None:
     """Raise NotImplementedError for a config value whose feature the port
-    does not have: a device mesh or ZeRO-1 (`parallel`) and orbax
-    checkpoints. The port runs on one card and checkpoints with pickle; a
-    value it would ignore is refused instead."""
+    does not have, instead of ignoring it. The port runs the data axis, one
+    process per card (`parallel/mesh.py`): `parallel.num_devices` must be
+    the number of processes (`world_size`, by default that of the running
+    process group, else 1) or 0 (all of them); `parallel.zero1` and
+    `train.ckpt_backend: pickle | orbax` (orbax: a torch.distributed.checkpoint
+    directory) are ported. The frame and spatial axes split one sequence
+    over several cards and are not; test mode runs on one process, as the
+    JAX CLI's Tester runs on one device."""
+    world = _running_world() if world_size is None else world_size
     par = cfg.get("parallel", {})
     train = cfg.get("train", {})
-    refused = [f"parallel.{k}={par[k]!r}"
-               for k in ("num_devices", "frame_devices", "spatial_devices")
-               if par.get(k, 1) != 1]
-    if par.get("zero1", False):
-        refused.append("parallel.zero1=True")
-    if train.get("ckpt_backend", "pickle") != "pickle":
+    refused = [f"parallel.{k}={par[k]!r} (the frame and spatial axes)"
+               for k in ("frame_devices", "spatial_devices") if par.get(k, 1) != 1]
+    if par.get("num_devices", 1) not in (0, world):
+        refused.append(f"parallel.num_devices={par['num_devices']!r} with {world} process(es): "
+                       "the port runs one process per card; launch that many with torchrun "
+                       "--nproc_per_node, or set 0 (all)")
+    if train.get("ckpt_backend", "pickle") not in ("pickle", "orbax"):
         refused.append(f"train.ckpt_backend={train['ckpt_backend']!r}")
+    if world > 1 and cfg.get("misc", {}).get("mode") == "test":
+        refused.append(f"misc.mode='test' with {world} processes (the Tester runs on one)")
     if refused:
-        raise NotImplementedError(
-            "the PyTorch port does not implement " + ", ".join(refused)
-            + " (it runs on one card and checkpoints with pickle)")
+        raise NotImplementedError("the PyTorch port does not implement " + ", ".join(refused))
 
 
 def save_config(cfg: dict, path: str) -> None:

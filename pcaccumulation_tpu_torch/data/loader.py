@@ -1,9 +1,13 @@
 """Batched data loader over static-shape samples (the port's copy of the
-JAX package's `data/loader.py`, on one host): every sample is already
-padded to the static capacities, so collation is a plain stack.
+JAX package's `data/loader.py`): every sample is already padded to the
+static capacities, so collation is a plain stack.
 
 The batches, `drop_last` and the seeded shuffle order are the JAX
-package's, so one seed gives both packages the same batches. With
+package's, so one seed gives both packages the same batches. In a run of
+several processes (`process_id`, `process_count`) every process shuffles
+with the same seed and takes the batches `process_id::process_count`,
+trimmed to one length on every process, as the JAX package's loader does:
+`len()` is per process. With
 `num_workers > 0` the next batches are prepared while the caller runs the
 current one, and batches still come in order:
 - `mode="thread"`: a pool of threads;
@@ -58,12 +62,13 @@ class make_loader:
     per batch; shuffle: reshuffle the indices every epoch; num_workers:
     prefetch workers (0 = synchronous); drop_last: drop the trailing
     partial batch; seed: shuffle seed; mode: "thread" or "process" (see
-    the module docstring; unused when num_workers is 0).
+    the module docstring; unused when num_workers is 0); process_id,
+    process_count: this process's slice of the batches.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 2, drop_last: bool = True, seed: int = 0,
-                 mode: str = "thread"):
+                 mode: str = "thread", process_id: int = 0, process_count: int = 1):
         if mode not in ("thread", "process"):
             raise ValueError(f"mode must be 'thread' or 'process', got {mode!r}")
         self.dataset = dataset
@@ -73,16 +78,23 @@ class make_loader:
         self.drop_last = drop_last
         self.mode = mode
         self.rng = np.random.default_rng(seed)
+        self.process_id = process_id
+        self.process_count = process_count
 
-    def __len__(self):
+    def _n_batches(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __len__(self):
+        return self._n_batches() // self.process_count
 
     def _index_batches(self):
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(idx)
-        return [idx[i * self.batch_size:(i + 1) * self.batch_size] for i in range(len(self))]
+        batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
+                   for i in range(self._n_batches())]
+        return batches[self.process_id::self.process_count][:len(self)]
 
     def _load(self, b) -> dict:
         return collate([self.dataset[int(i)] for i in b])

@@ -29,7 +29,9 @@ from pcaccumulation_tpu_torch.ops import se3
 from pcaccumulation_tpu_torch.ops.icp import refine_ego_poses
 from pcaccumulation_tpu_torch.ops.kabsch import weighted_kabsch
 from pcaccumulation_tpu_torch.ops.numeric import safe_norm
+from pcaccumulation_tpu_torch.ops.segment import take_rows
 from pcaccumulation_tpu_torch.ops.sinkhorn import log_sinkhorn, square_distance
+from pcaccumulation_tpu_torch.parallel.mesh import active_world, global_sum
 
 _EPS = 1e-7
 
@@ -131,8 +133,8 @@ class EgoMotionHead(nn.Module):
         frame_ok = frame_mask.any(dim=-1)  # [B, T]
 
         def take(arr):  # arr [B, M, C], top_idx [B, T, n] -> [B, T, n, C]
-            flat = top_idx.reshape(b, t_frames * n, 1).expand(-1, -1, arr.shape[-1])
-            return torch.gather(arr, 1, flat).reshape(b, t_frames, n, arr.shape[-1])
+            return take_rows(arr, top_idx.reshape(b, t_frames * n)).reshape(
+                b, t_frames, n, arr.shape[-1])
 
         samp_feats = take(pillar_feats)
         samp_coords = take(pillar_mean)
@@ -170,7 +172,9 @@ class EgoMotionHead(nn.Module):
         l1_pp = (diff.abs().sum(dim=-1) * in_frame).sum(dim=-1) / count
         l2_pp = (safe_norm(diff, dim=-1) * in_frame).sum(dim=-1) / count
         okf = pair_ok.to(pillar_mean.dtype)
-        n_ok = okf.sum() + _EPS
+        # sums over the (joined) batch: l1, l2, the pairs, rot and trans error
+        tot = global_sum(torch.stack([(l1_pp * okf).sum(), (l2_pp * okf).sum(), okf.sum()]))
+        n_ok = tot[2] + _EPS
 
         eye = eye4.expand(b, 1, 4, 4)
         if self.seq_pose == "chain":  # left-compose consecutive estimates
@@ -190,13 +194,15 @@ class EgoMotionHead(nn.Module):
         rot_err = se3.rotation_error_deg(chained_est[..., :3, :3], chained_gt[..., :3, :3])
         trans_err = se3.translation_error(chained_est[..., :3, 3], chained_gt[..., :3, 3])
         scale = t_frames / (t_frames - 1)
+        err = global_sum(torch.stack([rot_err.sum(), trans_err.sum()]))
+        n_err = rot_err.numel() * active_world()
         return {
             "ego_motion_est": chained_est,
             "ego_motion_gt": chained_gt,
-            "ego_l1_loss": (l1_pp * okf).sum() / n_ok,
-            "ego_l2_loss": (l2_pp * okf).sum() / n_ok,
-            "ego_rot_error": rot_err.mean() * scale,
-            "ego_trans_error": trans_err.mean() * scale,
+            "ego_l1_loss": tot[0] / n_ok,
+            "ego_l2_loss": tot[1] / n_ok,
+            "ego_rot_error": err[0] / n_err * scale,
+            "ego_trans_error": err[1] / n_err * scale,
             # the outlier loss reads the pairs that reach the anchor: all of
             # skip's and chain's, full's anchor pairs
             "perm_matrix": perm[:, self.anchor_pairs] if self.seq_pose == "full" else perm,

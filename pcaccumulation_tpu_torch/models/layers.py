@@ -24,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from pcaccumulation_tpu_torch.parallel.mesh import global_sum
+
 
 def _apply_cast(op, cd: torch.dtype, x: torch.Tensor, weight: torch.Tensor, bias):
     """op(x, weight) in the compute dtype cd, then + bias in cd."""
@@ -129,7 +131,10 @@ class MaskedBatchNorm(nn.Module):
     Used for [N, C] point sets (with a mask) and [N, C, H, W] maps (without).
     eps 1e-5; running statistics move by 0.1 of the batch statistic (flax
     momentum 0.9) and keep the biased batch variance — torch's own
-    BatchNorm keeps the unbiased one, so the port has its own.
+    BatchNorm keeps the unbiased one, so the port has its own. In train
+    mode the statistics are sums and counts over the whole batch: in a
+    data-parallel step (`parallel.mesh`) they are summed over the ranks,
+    so every rank normalises with, and keeps, the joined batch's statistics.
 
     With a compute dtype (the 2-D heads' BatchNorm, no mask) it takes the
     form of the JAX module it stands for; the statistics are float32 sums
@@ -175,13 +180,18 @@ class MaskedBatchNorm(nn.Module):
             return self._forward_cast(x, shape, dims)
         if self.training:
             if mask is None:
-                mean = x.mean(dim=dims)
-                var = ((x - mean.reshape(shape)) ** 2).mean(dim=dims)
+                m = None
+                count = x.new_full((), x.numel() // x.shape[1])  # a fill, no host copy
+                sums = x.sum(dim=dims)
             else:
                 m = mask.to(x.dtype).reshape(mask.shape + (1,) * (x.dim() - mask.dim()))
-                count = torch.clamp(m.sum(), min=1.0)
-                mean = (x * m).sum(dim=dims) / count
-                var = (((x - mean.reshape(shape)) ** 2) * m).sum(dim=dims) / count
+                count = m.sum()
+                sums = (x * m).sum(dim=dims)
+            sums = global_sum(torch.cat([sums, count[None]]))
+            count = torch.clamp(sums[-1], min=1.0)
+            mean = sums[:-1] / count
+            dev2 = (x - mean.reshape(shape)) ** 2
+            var = global_sum((dev2 if m is None else dev2 * m).sum(dim=dims)) / count
             self._update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -193,8 +203,11 @@ class MaskedBatchNorm(nn.Module):
         cd = self.compute_dtype
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=dims)
-            var = (xf * xf).mean(dim=dims) - mean * mean
+            c = xf.shape[1]
+            sums = global_sum(torch.cat([xf.sum(dim=dims), (xf * xf).sum(dim=dims),
+                                         xf.new_full((1,), xf.numel() // c)]))
+            mean = sums[:c] / sums[-1]
+            var = sums[c:2 * c] / sums[-1] - mean * mean
             if not self.s2d:
                 var = torch.clamp(var, min=0.0)
             self._update_running(mean, var)

@@ -69,6 +69,7 @@ from pcaccumulation_tpu_torch.ops.bilinear import (
 )
 from pcaccumulation_tpu_torch.ops.cluster import cluster_moving_points
 from pcaccumulation_tpu_torch.ops.segment import compact_mask_indices, take_rows_unique
+from pcaccumulation_tpu_torch.parallel.mesh import global_sum
 
 MIN_POINTS = 15
 
@@ -243,7 +244,7 @@ class MotionNet(nn.Module):
             fb_mask = (fb_est_point == 1) & point_valid
             if mode != "test":
                 fb_mask = fb_mask | ((fb_labels == 1) & point_valid)
-            gate = fb_mask.sum() > MIN_POINTS
+            gate = global_sum(fb_mask.sum()) > MIN_POINTS
             s_fb = self.cfg["capacity"].get("max_fg_points", 0) or n
             default_mos = torch.zeros((b, n, 2), dtype=points.dtype, device=points.device)
             default_mos[..., 0] = 1.0
@@ -318,7 +319,7 @@ class MotionNet(nn.Module):
                 inst_motion_gt, results["ego_motion_gt"],
                 results["ego_motion_est"])
 
-        rec_gate = r_mask.sum() > MIN_POINTS
+        rec_gate = global_sum(r_mask.sum()) > MIN_POINTS
         results["tpointnet_loss_terms"] = {
             it: {k: torch.where(rec_gate, v, 0.0) for k, v in terms.items()}
             for it, terms in rec["tpointnet_loss_terms"].items()

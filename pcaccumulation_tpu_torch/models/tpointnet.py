@@ -22,6 +22,7 @@ from pcaccumulation_tpu_torch.ops import se3
 from pcaccumulation_tpu_torch.ops.icp import refine_instance_poses
 from pcaccumulation_tpu_torch.ops.numeric import safe_norm
 from pcaccumulation_tpu_torch.ops.segment import masked_segment_max, masked_segment_sum
+from pcaccumulation_tpu_torch.parallel.mesh import global_sum
 
 _EPS = 1e-7
 
@@ -154,16 +155,18 @@ class TPointNet(nn.Module):
         sum_l = masked_segment_sum(torch.stack([safe_norm(diff), diff.abs().sum(-1)], -1),
                                    frame_id, valid, gt_slots + 1)[:gt_slots]
         inv_count = 1.0 / torch.clamp(frame_count_raw, min=1e-12)
-        w_sum = frame_weights.sum() + _EPS
         quat_n = rep[:, :4] / (safe_norm(rep[:, :4], keepdim=True) + _EPS)
         gt_rep_flat = gt_rep.reshape(gt_slots, 7)
-        losses = {
-            "l1_loss": (sum_l[:, 0] * inv_count * frame_weights).sum() / w_sum,
-            "l2_loss": (sum_l[:, 1] * inv_count * frame_weights).sum() / w_sum,
-            "rot_loss": (safe_norm(gt_rep_flat[:, :4] - quat_n) * frame_weights).sum() / w_sum,
-            "trans_loss": (safe_norm(gt_rep_flat[:, 4:] - rep[:, 4:]) * frame_weights).sum()
-            / w_sum,
-        }
+        # weighted sums over the (joined) batch's slots, then the weights' sum
+        tot = global_sum(torch.stack([
+            (sum_l[:, 0] * inv_count * frame_weights).sum(),
+            (sum_l[:, 1] * inv_count * frame_weights).sum(),
+            (safe_norm(gt_rep_flat[:, :4] - quat_n) * frame_weights).sum(),
+            (safe_norm(gt_rep_flat[:, 4:] - rep[:, 4:]) * frame_weights).sum(),
+            frame_weights.sum()]))
+        w_sum = tot[4] + _EPS
+        losses = {"l1_loss": tot[0] / w_sum, "l2_loss": tot[1] / w_sum,
+                  "rot_loss": tot[2] / w_sum, "trans_loss": tot[3] / w_sum}
 
         # de-centre, anchor frame identity
         rot_e = pose_est[:, :3, :3]
@@ -246,10 +249,12 @@ class AlignNet(nn.Module):
         l2 = safe_norm(rec_est - rec_gt)
         w_full = (valid & (tid > 0)).to(l2.dtype)
         w_dyn = w_full * (mos_l == 1)
+        tot = global_sum(torch.stack([(l2 * w_full).sum(), w_full.sum(), (l2 * w_dyn).sum(),
+                                      w_dyn.sum()]))
         return {
             "tpointnet_loss_terms": loss_terms,
-            "inst_l2_error": (l2 * w_full).sum() / (w_full.sum() + _EPS),
-            "dynamic_inst_l2_error": (l2 * w_dyn).sum() / (w_dyn.sum() + _EPS),
+            "inst_l2_error": tot[0] / (tot[1] + _EPS),
+            "dynamic_inst_l2_error": tot[2] / (tot[3] + _EPS),
             "inst_pose_est": final_pose.reshape(b, k, t, 4, 4),
             "sub_rec_est": rec_est.reshape(b, n, 3),
         }

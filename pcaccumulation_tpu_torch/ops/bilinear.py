@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
+from pcaccumulation_tpu_torch.ops.segment import take_rows
 
 
 def _corners(x: torch.Tensor, y: torch.Tensor):
@@ -35,8 +36,9 @@ def _lerp4(v00, v01, v10, v11, tx, ty):
 
 
 def _gather_rows(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """flat [B, R, C], idx [B, N] in [0, R) -> [B, N, C]."""
-    return torch.gather(flat, 1, idx[..., None].expand(idx.shape + flat.shape[-1:]))
+    """flat [B, R, C], idx [B, N] in [0, R) -> [B, N, C] (the gradient:
+    `ops.segment.sorted_segment_sum`)."""
+    return take_rows(flat, idx)
 
 
 def bilinear_sample(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,

@@ -4,8 +4,8 @@ micro-step's time goes on the card.
     python -m pcaccumulation_tpu_torch.profile_forward [--train | --test | --serve] [config.yaml [--a.b=v ...]]
 
 Builds the MotionNet of the given config (default: configs/default.yaml;
-e.g. `--train configs/nuscene.yaml --train.ckpt_backend=pickle` for the
-nuScenes preset's bf16 micro-step) at full width with seeded random
+e.g. `--train configs/nuscene.yaml` for the nuScenes preset's bf16
+micro-step) at full width with seeded random
 weights on synthetic scenes at the config's capacities (`default_scenes`),
 warms it up, then measures:
 - the forward's (with --train: the micro-step's) median time on the host

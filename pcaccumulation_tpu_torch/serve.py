@@ -13,8 +13,8 @@ label-free predictor (the port of the JAX package's `serve.py`).
 Input is the raw sensor contract (per-frame sensor-coordinate points and
 their frame indices, `raw_points` / `time_indice` of the dataset); no
 labels are needed. Outputs are numpy arrays over the points that survived
-the crop and the ground filter. The checkpoint may be the port's or the
-JAX package's pickle (`utils/checkpoint.py`).
+the crop and the ground filter. The checkpoint may be in any form
+`utils/checkpoint.py::read_checkpoint` reads.
 
 The step runs on the card unless the caller passes `device="cpu"`. The
 JAX package keeps one jitted step per config (`_STEP_CACHE`); PyTorch
@@ -42,7 +42,7 @@ from pcaccumulation_tpu_torch import build_model, resolve_device
 from pcaccumulation_tpu_torch.config import check_supported
 from pcaccumulation_tpu_torch.data.dataset import prep_sample
 from pcaccumulation_tpu_torch.data.loader import collate
-from pcaccumulation_tpu_torch.utils.checkpoint import load_checkpoint, model_state, partial_load
+from pcaccumulation_tpu_torch.utils.checkpoint import partial_load, read_checkpoint
 
 # bump when the artifact's contents change (its inputs, outputs or files)
 EXPORT_FORMAT_VERSION = 1
@@ -99,8 +99,7 @@ class Predictor:
             torch.manual_seed(0)
             model = build_model(cfg, self.device)
         if state_dict is None and ckpt_path:
-            state_dict = partial_load(model_state(load_checkpoint(ckpt_path)),
-                                      model.state_dict())
+            state_dict = partial_load(read_checkpoint(ckpt_path)["model"], model.state_dict())
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model

@@ -5,6 +5,11 @@ Weighted cross entropy with online sqrt-inverse-frequency class weights,
 Lovász-Softmax, the Sinkhorn outlier loss, the offset norm and direction
 losses and the γ-decayed TPointNet objective, plus per-class IoU counters
 in thousandths for the host meters.
+
+Every reduction over the batch is a sum or a count through
+`parallel.mesh.global_sum`, and Lovász reads the joined rows
+(`gather_rows`): in a data-parallel step every rank computes the joined
+batch's loss; outside one both are the identity.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from pcaccumulation_tpu_torch.ops import se3
 from pcaccumulation_tpu_torch.ops.lovasz import lovasz_softmax
 from pcaccumulation_tpu_torch.ops.numeric import safe_norm
 from pcaccumulation_tpu_torch.ops.segment import masked_segment_mean
+from pcaccumulation_tpu_torch.parallel.mesh import active_world, gather_rows, global_sum
 
 _EPS = 1e-7
 N_CLASSES = 2
@@ -24,19 +30,13 @@ N_CLASSES = 2
 def compute_iou_stats(pred, gt, valid) -> dict:
     """Per-class intersection / union / pred-positives / gt-positives over
     valid rows, each divided by 1e3."""
-    inter, union, pred_pos, gt_pos = [], [], [], []
+    counts = []
     for c in range(N_CLASSES):
         sel_gt = (gt == c) & valid
         sel_pred = (pred == c) & valid
-        i = (sel_gt & sel_pred).sum() / 1e3
-        p = sel_pred.sum() / 1e3
-        gp = sel_gt.sum() / 1e3
-        inter.append(i)
-        union.append(p + gp - i)
-        pred_pos.append(p)
-        gt_pos.append(gp)
-    return {"intersection": torch.stack(inter), "union": torch.stack(union),
-            "pred_positives": torch.stack(pred_pos), "gt_positives": torch.stack(gt_pos)}
+        counts += [(sel_gt & sel_pred).sum(), sel_pred.sum(), sel_gt.sum()]
+    i, p, gp = (global_sum(torch.stack(counts)) / 1e3).reshape(N_CLASSES, 3).unbind(1)
+    return {"intersection": i, "union": p + gp - i, "pred_positives": p, "gt_positives": gp}
 
 
 def weighted_ce(logits, labels, valid, max_weight: float = 50.0):
@@ -44,21 +44,23 @@ def weighted_ce(logits, labels, valid, max_weight: float = 50.0):
     frequency) clipped at max_weight, as a weighted mean (the weights are
     constants of the batch)."""
     validf = valid.to(logits.dtype)
-    counts = torch.stack([((labels == c) & valid).sum() + _EPS
-                          for c in range(N_CLASSES)]).to(logits.dtype)
+    counts = (global_sum(torch.stack([((labels == c) & valid).sum()
+                                      for c in range(N_CLASSES)])) + _EPS).to(logits.dtype)
     class_w = torch.clamp(torch.sqrt(counts.sum() / counts), 0.0, max_weight)
     logp = F.log_softmax(logits, dim=-1)
     lab = labels.long().clamp(0, N_CLASSES - 1)
     nll = -torch.gather(logp, -1, lab[..., None])[..., 0]
     w = class_w[lab] * validf
-    return (nll * w).sum() / (w.sum() + _EPS)
+    tot = global_sum(torch.stack([(nll * w).sum(), w.sum()]))
+    return tot[0] / (tot[1] + _EPS)
 
 
 def seg_loss(logits, labels, valid) -> dict:
     """CE + Lovász + IoU counters."""
     return {
         "bce_loss": weighted_ce(logits, labels, valid),
-        "lovasz_loss": lovasz_softmax(F.softmax(logits, dim=-1), labels, valid),
+        "lovasz_loss": lovasz_softmax(gather_rows(F.softmax(logits, dim=-1)),
+                                      gather_rows(labels), gather_rows(valid)),
         "metric": compute_iou_stats(logits.argmax(-1), labels, valid),
     }
 
@@ -66,7 +68,9 @@ def seg_loss(logits, labels, valid) -> dict:
 def outlier_loss(perm):
     """Sinkhorn slack-mass penalty over perm [B, P, n, n]: mean(1 - column
     sums) + mean(1 - row sums)."""
-    return (1.0 - perm.sum(dim=-2)).mean() + (1.0 - perm.sum(dim=-1)).mean()
+    tot = global_sum(torch.stack([(1.0 - perm.sum(dim=-2)).sum(), (1.0 - perm.sum(dim=-1)).sum()]))
+    return (tot[0] / (perm.numel() // perm.shape[-2] * active_world())
+            + tot[1] / (perm.numel() // perm.shape[-1] * active_world()))
 
 
 def offset_loss(batch, results, max_instances: int):
@@ -104,15 +108,21 @@ def offset_loss(batch, results, max_instances: int):
     gt_off = center_pp[..., :2] - est_comp[..., :2]
 
     mf = fb_mask.to(points.dtype)
-    cnt = mf.sum() + _EPS
-    # per-coordinate mean over rows, then summed
-    norm_loss = ((gt_off - est_off).abs() * mf[..., None]).sum(dim=(0, 1)).div(cnt).sum()
-    l2_err = (safe_norm(gt_off - est_off) * mf).sum() / cnt
     gt_n = gt_off / (safe_norm(gt_off, keepdim=True) + _EPS)
     est_n = est_off / (safe_norm(est_off, keepdim=True) + _EPS)
-    dir_loss = ((1.0 - (gt_n * est_n).sum(-1)) * mf).sum() / cnt
+    # sums over the (joined) batch's rows: |d| per coordinate, the l2 error,
+    # the direction term, the rows
+    tot = global_sum(torch.cat([((gt_off - est_off).abs() * mf[..., None]).sum(dim=(0, 1)),
+                                torch.stack([(safe_norm(gt_off - est_off) * mf).sum(),
+                                             ((1.0 - (gt_n * est_n).sum(-1)) * mf).sum(),
+                                             mf.sum()])]))
+    cnt = tot[4] + _EPS
+    # per-coordinate mean over rows, then summed
+    norm_loss = tot[:2].div(cnt).sum()
+    l2_err = tot[2] / cnt
+    dir_loss = tot[3] / cnt
 
-    gate = fb_mask.sum() > 0
+    gate = tot[4] > 0
     return (torch.where(gate, norm_loss, 0.0), torch.where(gate, dir_loss, 0.0),
             torch.where(gate, l2_err, 0.0))
 
@@ -155,7 +165,7 @@ def fuse_loss(results: dict, batch: dict, weights: dict, max_instances: int) -> 
     else:
         mos_stats = seg_loss(results["mos_est"].reshape(-1, 2),
                              batch["sd_labels"].reshape(-1), fb_mask.reshape(-1))
-    mos = torch.where(fb_mask.sum() > 0,
+    mos = torch.where(global_sum(fb_mask.sum()) > 0,
                       weights["w_mos_bce_loss"] * mos_stats["bce_loss"]
                       + weights["w_mos_lovasz_loss"] * mos_stats["lovasz_loss"], 0.0)
     total = total + mos

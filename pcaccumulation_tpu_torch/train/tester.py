@@ -31,7 +31,7 @@ from pcaccumulation_tpu_torch.train.metrics import (
     update_stats_meter,
 )
 from pcaccumulation_tpu_torch.train.trainer import MOS_CLASSES, stats_to_host
-from pcaccumulation_tpu_torch.utils.checkpoint import load_checkpoint, model_state, partial_load
+from pcaccumulation_tpu_torch.utils.checkpoint import partial_load, read_checkpoint
 from pcaccumulation_tpu_torch.utils.logging import Logger
 
 _EPS = 1e-7
@@ -42,7 +42,8 @@ class Tester:
     """cfg: the derived config; model: a MotionNet; device: None = CUDA.
     The dumps go to results_dir (default results/<misc.exp_name> under the
     working directory), the logs to save_dir. `misc.pretrain` names a
-    checkpoint to load: the port's Trainer's or the JAX package's pickle."""
+    checkpoint to load, in any form `utils.checkpoint.read_checkpoint`
+    reads."""
 
     def __init__(self, cfg, model, save_dir=None, device=None, results_dir=None):
         check_supported(cfg)
@@ -55,8 +56,8 @@ class Tester:
         self.logger = Logger(self.save_dir)
         pretrain = cfg["misc"].get("pretrain", "")
         if pretrain:
-            state = load_checkpoint(pretrain)
-            self.model.load_state_dict(partial_load(model_state(state), self.model.state_dict()))
+            state = read_checkpoint(pretrain)
+            self.model.load_state_dict(partial_load(state["model"], self.model.state_dict()))
             self.logger.write(f"Loaded checkpoint {pretrain}\n")
 
     @torch.no_grad()

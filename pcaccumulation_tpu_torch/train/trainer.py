@@ -1,5 +1,6 @@
 """Training and evaluation runtime (the port of the JAX package's
-`train/trainer.py`, one device).
+`train/trainer.py`): one process, or one process per card of a
+data-parallel run (`parallel/mesh.py`).
 
 `Optimizer` writes out by hand what the JAX package builds from optax
 (`make_optimizer`), where torch's own optimizers and clipping differ:
@@ -29,6 +30,24 @@ did: the keypoint draw's scores are drawn before the checkpointed region
 BatchNorms' running statistics, which the recompute would update a second
 time, are put back after it. A remat step's gradients and statistics are
 those of a plain step.
+
+The steps run under `torch.use_deterministic_algorithms` (set on entry,
+restored on exit): two steps on the same batch and weights give the same
+bits on the card, as the JAX package's step does on its TPU.
+
+Data parallel (a process group from `parallel.mesh.init_distributed`):
+`train.batch_size` is per process and each step computes one process's
+function on the joined batch. The forward and FuseLoss reduce over the
+ranks inside `mesh.data_parallel` (BatchNorm statistics, loss sums and
+counts, gates, Lovász's rows), each rank draws the joined batch's keypoint
+scores and keeps its rows, and every micro-step's gradients are averaged
+over the ranks in one all-reduce, so `Optimizer.update` sees the joined
+gradient on every rank. With `parallel.zero1` each rank keeps Adam's
+moments and the accumulators of the parameters it owns (a partition of
+the parameters balanced by size), updates those, and broadcasts them; the
+clip's global norm and the skip flag come from every parameter. Logs, the
+architecture dump and pickle checkpoints are written by rank 0; an orbax
+(torch.distributed.checkpoint) checkpoint by every rank.
 """
 
 from __future__ import annotations
@@ -38,10 +57,13 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.utils.deterministic
 from torch.utils.checkpoint import checkpoint
 
 from pcaccumulation_tpu_torch import resolve_device, to_device
 from pcaccumulation_tpu_torch.config import check_supported
+from pcaccumulation_tpu_torch.parallel import mesh
 from pcaccumulation_tpu_torch.train.loss import fuse_loss
 from pcaccumulation_tpu_torch.train.metrics import (
     compute_mean_iou_recall_precision,
@@ -49,8 +71,8 @@ from pcaccumulation_tpu_torch.train.metrics import (
     update_stats_meter,
 )
 from pcaccumulation_tpu_torch.utils.checkpoint import (
-    load_checkpoint,
     partial_load,
+    read_checkpoint,
     save_checkpoint,
 )
 from pcaccumulation_tpu_torch.utils.logging import Logger, MetricsWriter
@@ -59,24 +81,47 @@ MOS_CLASSES = ["static", "moving"]
 FB_CLASSES = ["background", "foreground"]
 
 
+def partition_by_size(sizes: list, n_parts: int) -> list:
+    """The owner in [0, n_parts) of each item: the largest first, each to the
+    part holding the fewest elements so far (ties to the lower part)."""
+    load = [0] * n_parts
+    owner = [0] * len(sizes)
+    for i in sorted(range(len(sizes)), key=lambda i: (-sizes[i], i)):
+        part = min(range(n_parts), key=lambda r: (load[r], r))
+        owner[i] = part
+        load[part] += sizes[i]
+    return owner
+
+
 class Optimizer:
     """Gradient accumulation, skip-if-non-finite, global-norm clipping and
     Adam with a staircase exponential LR, as the JAX package's
-    `make_optimizer` (see the module docstring)."""
+    `make_optimizer` (see the module docstring). `group` and `zero1`: the
+    ZeRO-1 partition of the state over the ranks of a data-parallel run;
+    the state of a parameter this rank does not own is None."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, params, cfg: dict, updates_per_epoch: int = 1):
+    def __init__(self, params, cfg: dict, updates_per_epoch: int = 1, group=None,
+                 zero1: bool = False, names: list | None = None):
         self.params = list(params)
+        self.names = names or [str(i) for i in range(len(self.params))]
         self.lr0 = cfg["optimizer"]["learning_rate"]
         self.weight_decay = cfg["optimizer"].get("weight_decay", 0.0)
         self.gamma = cfg["scheduler"]["exp_gamma"]
         self.updates_per_epoch = max(1, updates_per_epoch)
         self.max_norm = cfg["train"]["grad_clip"]
         self.iter_size = cfg["train"]["iter_size"]
-        self.acc = [torch.zeros_like(p) for p in self.params]
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.group = group if zero1 else None  # the ZeRO-1 group
+        self.rank, self.world = mesh.rank(self.group), mesh.world(self.group)
+        self.owner = partition_by_size([p.numel() for p in self.params], self.world)
+        self.owned = [i for i, r in enumerate(self.owner) if r == self.rank]
+
+        def zeros():
+            return [torch.zeros_like(p) if r == self.rank else None
+                    for p, r in zip(self.params, self.owner)]
+
+        self.acc, self.mu, self.nu = zeros(), zeros(), zeros()
         self.mini_step = 0      # micro-steps in the current accumulation
         self.count = 0          # applied updates: Adam's step, the LR schedule's count
         self.n_skipped = 0      # updates skipped for a non-finite mean
@@ -91,30 +136,51 @@ class Optimizer:
         Returns None while it accumulates, then True if the mean was
         applied or False if it was skipped."""
         n = self.mini_step + 1
-        for a, g in zip(self.acc, grads):
+        for i in self.owned:
+            a, g = self.acc[i], grads[i]
             a.add_(((g if g is not None else torch.zeros_like(a)) - a) / n)
         self.mini_step = n
         if n < self.iter_size:
             return None
         self.mini_step = 0
-        finite = bool(torch.stack([torch.isfinite(a).all() for a in self.acc]).all())
+        sq, bad = self._leaf_stats()
+        finite = not bool(bad.any())
         if finite:
-            self._apply(self.acc)
+            self._apply(torch.sqrt(sq.sum()))
         else:
             self.n_skipped += 1
-        for a in self.acc:
-            a.zero_()
+        for i in self.owned:
+            self.acc[i].zero_()
         return finite
 
-    def _apply(self, grads) -> None:
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    def _leaf_stats(self):
+        """Each parameter's sum of squares of the accumulated mean and
+        whether it holds a non-finite value, [n_params] each, on every rank
+        (under ZeRO-1 each slot is filled by its owner alone, so the
+        all-reduce adds zeros and the global norm has the same bits as
+        without ZeRO-1)."""
+        accs = [self.acc[i] for i in self.owned]
+        local = (torch.stack([torch.stack([torch.sum(a * a) for a in accs]),
+                              torch.stack([(~torch.isfinite(a).all()).float() for a in accs])])
+                 if accs else None)
+        if self.group is None:
+            stats = local
+        else:
+            stats = torch.zeros((2, len(self.params)), device=self.params[0].device)
+            if accs:
+                stats[:, self.owned] = local
+            dist.all_reduce(stats, group=self.group)
+        return stats[0], stats[1] > 0
+
+    def _apply(self, norm) -> None:
         clip = bool(norm >= self.max_norm)
         lr = self.lr()
         self.count += 1
         # bias corrections in float32, as optax computes them
         c1 = float(np.float32(1.0) - np.float32(self.B1) ** self.count)
         c2 = float(np.float32(1.0) - np.float32(self.B2) ** self.count)
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
+        for i in self.owned:
+            p, g, mu, nu = self.params[i], self.acc[i], self.mu[i], self.nu[i]
             if clip:
                 g = g / norm * self.max_norm
             mu.mul_(self.B1).add_((1.0 - self.B1) * g)
@@ -123,24 +189,88 @@ class Optimizer:
             if self.weight_decay > 0:
                 u = u + self.weight_decay * p
             p.add_(u * -lr)
+        if self.group is not None:
+            self._broadcast(self.params)
+
+    def _broadcast(self, tensors: list) -> None:
+        """Each owner's entries of `tensors` to every rank, one broadcast
+        per rank (entries this rank does not own are written in place)."""
+        for r in range(self.world):
+            idx = [i for i, o in enumerate(self.owner) if o == r]
+            if not idx:
+                continue
+            flat = (torch.cat([tensors[i].reshape(-1) for i in idx]) if r == self.rank else
+                    torch.empty(sum(self.params[i].numel() for i in idx),
+                                device=self.params[0].device))
+            dist.broadcast(flat, src=dist.get_global_rank(self.group, r), group=self.group)
+            if r != self.rank:
+                ofs = 0
+                for i in idx:
+                    k = self.params[i].numel()
+                    tensors[i].copy_(flat[ofs:ofs + k].view_as(tensors[i]))
+                    ofs += k
 
     def state_dict(self) -> dict:
-        return {"acc": self.acc, "mu": self.mu, "nu": self.nu, "mini_step": self.mini_step,
-                "count": self.count, "n_skipped": self.n_skipped}
+        """The state by parameter name, of the parameters this rank owns."""
+        out = {key: {self.names[i]: getattr(self, key)[i] for i in self.owned}
+               for key in ("acc", "mu", "nu")}
+        out.update(mini_step=self.mini_step, count=self.count, n_skipped=self.n_skipped)
+        return out
+
+    def full_state_dict(self) -> dict:
+        """`state_dict` with every parameter's entries: under ZeRO-1 a
+        collective of the group, whose ranks all call it."""
+        if self.group is None:
+            return self.state_dict()
+        full = {}
+        for key in ("acc", "mu", "nu"):
+            mine = getattr(self, key)
+            ts = [mine[i] if mine[i] is not None else torch.empty_like(p)
+                  for i, p in enumerate(self.params)]
+            self._broadcast(ts)
+            full[key] = dict(zip(self.names, ts))
+        full.update(mini_step=self.mini_step, count=self.count, n_skipped=self.n_skipped)
+        return full
 
     def load_state_dict(self, state: dict) -> None:
-        """Raises ValueError if the saved state does not fit the parameters."""
+        """`state`'s entries of the parameters this rank owns. The entries
+        are dicts by parameter name (any number of ranks wrote them) or
+        lists over the parameters. Raises ValueError if the saved state does
+        not fit the parameters."""
+        saved = {}
         for key in ("acc", "mu", "nu"):
-            saved = state[key]
-            if len(saved) != len(self.params) or any(
-                    s.shape != p.shape for s, p in zip(saved, self.params)):
+            entries = state[key]
+            if isinstance(entries, dict):
+                entries = [entries.get(n) for n in self.names]
+            if len(entries) != len(self.params) or any(
+                    entries[i] is None or tuple(entries[i].shape) != tuple(self.params[i].shape)
+                    for i in self.owned):
                 raise ValueError("optimizer state does not match the parameters")
-        for key in ("acc", "mu", "nu"):
-            for dst, src in zip(getattr(self, key), state[key]):
-                dst.copy_(src)
-        self.mini_step = state["mini_step"]
-        self.count = state["count"]
-        self.n_skipped = state["n_skipped"]
+            saved[key] = entries
+        for key, entries in saved.items():
+            for i in self.owned:
+                getattr(self, key)[i].copy_(entries[i])
+        self.mini_step = int(state["mini_step"])
+        self.count = int(state["count"])
+        self.n_skipped = int(state["n_skipped"])
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """`torch.use_deterministic_algorithms(True)` in the block, then torch's
+    setting as it was. Memory that torch leaves uninitialised is not filled
+    with NaN in it: a debugging aid, which reproducible results do not need,
+    at ~14 ms per nuScenes micro-step on the card."""
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled(),
+            torch.utils.deterministic.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+        torch.utils.deterministic.fill_uninitialized_memory = prev[2]
 
 
 @contextlib.contextmanager
@@ -184,17 +314,22 @@ def stats_to_host(stats: dict) -> dict:
 
 class Trainer:
     """cfg: the derived config; model: a MotionNet; loaders: {"train",
-    "val"} iterables of collated numpy batches; device: None = CUDA."""
+    "val"} iterables of collated numpy batches (this process's slice);
+    device: None = CUDA. In a process group (`parallel.mesh`) the Trainer
+    is one rank of a data-parallel run (see the module docstring)."""
 
     def __init__(self, cfg, model, loaders, save_dir=None, device=None):
-        check_supported(cfg)
+        self.group = mesh.default_group()
+        self.rank, self.world = mesh.rank(self.group), mesh.world(self.group)
+        check_supported(cfg, self.world)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.loaders = loaders
         self.save_dir = save_dir or os.path.join("snapshot", cfg["misc"]["exp_name"])
-        self.logger = Logger(self.save_dir)
-        self.metrics_writer = MetricsWriter(self.save_dir)
+        self.is_main = self.rank == 0
+        self.logger = Logger(self.save_dir if self.is_main else None, also_print=self.is_main)
+        self.metrics_writer = MetricsWriter(self.save_dir if self.is_main else None)
         self.n_verbose = cfg["train"].get("n_verbose", 0)
         self.iter_size = cfg["train"]["iter_size"]
         self.max_epoch = cfg["train"]["max_epoch"]
@@ -208,11 +343,15 @@ class Trainer:
             updates_per_epoch = max(1, len(loaders["train"]) // self.iter_size)
         else:
             updates_per_epoch = 1
-        self.params = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer = Optimizer(self.params, cfg, updates_per_epoch)
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self.params = [p for _, p in named]
+        self.optimizer = Optimizer(self.params, cfg, updates_per_epoch, group=self.group,
+                                   zero1=cfg.get("parallel", {}).get("zero1", False),
+                                   names=[n for n, _ in named])
         n_params = sum(p.numel() for p in self.params)
         self.logger.write(f"#parameters {n_params / 1e6} M\n")
-        self._dump_architecture(n_params)
+        if self.is_main:
+            self._dump_architecture(n_params)
 
         pretrain = cfg["misc"].get("pretrain", "")
         if pretrain:
@@ -241,45 +380,62 @@ class Trainer:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     # ------------------------------------------------------------------ steps
+    def kpt_scores(self, batch: dict, generator: torch.Generator | None):
+        """The random keypoint draw's uniform scores of this rank's rows: the
+        joined batch's [world * B, T, M] drawn from the step's generator (the
+        same on every rank), this rank's B rows kept, so that the draw is the
+        one process's draw. None under deterministic sampling."""
+        if self.cfg["pose_estimation"].get("deterministic_sampling", False):
+            return None
+        b, m = batch["pillar_valid"].shape
+        scores = torch.rand((self.world * b, self.cfg["voxel_generator"]["n_sweeps"], m),
+                            generator=generator, device=self.device)
+        return scores[self.rank * b:(self.rank + 1) * b]
+
     def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """One micro-step: forward in train mode (batch statistics, running
         statistics updated), FuseLoss, backward, and the optimizer's
-        accumulate-or-update. batch: tensors on the device. Under
-        `precision.compute_dtype: bfloat16` the model computes in bf16 where
-        the JAX package does; its parameters, their gradients and the
-        optimizer's state stay float32. With `train.remat` the forward and the
-        loss are recomputed in the backward pass (see the module docstring)."""
+        accumulate-or-update. batch: tensors on the device (this rank's
+        rows). Under `precision.compute_dtype: bfloat16` the model computes
+        in bf16 where the JAX package does; its parameters, their gradients
+        and the optimizer's state stay float32. With `train.remat` the
+        forward and the loss are recomputed in the backward pass (see the
+        module docstring)."""
         self.model.train()
 
         def forward_loss(batch, kpt_scores):
-            results = self.model(batch, mode="train", generator=generator,
-                                 kpt_scores=kpt_scores)
+            results = self.model(batch, mode="train", kpt_scores=kpt_scores)
             return fuse_loss(results, batch, self.cfg["loss"],
                              self.cfg["capacity"]["max_instances"])
 
-        if self.remat:
-            scores = None
-            if not self.cfg["pose_estimation"].get("deterministic_sampling", False):
-                # the draw of `draw_keypoints`, taken here, outside the recompute
-                b, m = batch["pillar_valid"].shape
-                scores = torch.rand((b, self.cfg["voxel_generator"]["n_sweeps"], m),
-                                    generator=generator, device=self.device)
-            stats = checkpoint(forward_loss, batch, scores, use_reentrant=False,
-                               context_fn=lambda: (contextlib.nullcontext(),
-                                                   _buffers_kept(self.model)))
-        else:
-            stats = forward_loss(batch, None)
-        for p in self.params:
-            p.grad = None
-        stats["loss"].backward()
-        self.optimizer.update([p.grad for p in self.params])
+        with deterministic_algorithms(), mesh.data_parallel(self.group):
+            # drawn outside the remat's recompute, which restores only the
+            # default generators
+            scores = self.kpt_scores(batch, generator)
+            if self.remat:
+                stats = checkpoint(forward_loss, batch, scores, use_reentrant=False,
+                                   context_fn=lambda: (contextlib.nullcontext(),
+                                                       _buffers_kept(self.model)))
+            else:
+                stats = forward_loss(batch, scores)
+            for p in self.params:
+                p.grad = None
+            stats["loss"].backward()
+            grads = [p.grad for p in self.params]
+            if self.group is not None:
+                grads = mesh.mean_over_ranks(
+                    [g if g is not None else torch.zeros_like(p)
+                     for g, p in zip(grads, self.params)], self.group)
+            self.optimizer.update(grads)
         return {k: (v.detach() if torch.is_tensor(v) else v) for k, v in stats.items()}
 
     @torch.no_grad()
     def val_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         self.model.eval()
-        results = self.model(batch, mode="val", generator=generator)
-        return fuse_loss(results, batch, self.cfg["loss"], self.cfg["capacity"]["max_instances"])
+        with deterministic_algorithms(), mesh.data_parallel(self.group):
+            results = self.model(batch, mode="val", kpt_scores=self.kpt_scores(batch, generator))
+            return fuse_loss(results, batch, self.cfg["loss"],
+                             self.cfg["capacity"]["max_instances"])
 
     # ------------------------------------------------------------------ epochs
     def inference_one_epoch(self, epoch: int, phase: str):
@@ -343,7 +499,7 @@ class Trainer:
     # ------------------------------------------------------------------ api
     def train(self):
         # the training loop's own check
-        check_supported(dict(self.cfg, misc=dict(self.cfg["misc"], mode="train")))
+        check_supported(dict(self.cfg, misc=dict(self.cfg["misc"], mode="train")), self.world)
         for epoch in range(self.start_epoch, self.max_epoch):
             self.logger.write(f"epoch {epoch} lr {self.current_lr():.3e}\n")
             self.inference_one_epoch(epoch, "train")
@@ -362,22 +518,39 @@ class Trainer:
 
     # ------------------------------------------------------------------ ckpt
     def snapshot(self, epoch, name=None):
+        """The rolling checkpoint `name` (`train.ckpt_backend`: pickle, a
+        file written by rank 0; orbax, a torch.distributed.checkpoint
+        directory written by every rank, each with its own optimizer
+        entries). Every rank calls it."""
         fname = os.path.join(self.save_dir, f"model_{name or epoch}.ckpt")
-        save_checkpoint(fname, {
-            "epoch": epoch, "model": self.model.state_dict(),
-            "optimizer": self.optimizer.state_dict(),
-            "best_loss": self.best_loss, "best_metric": self.best_metric,
-        })
-        self.logger.write(f"Save model to {fname}\n")
+        backend = self.cfg["train"].get("ckpt_backend", "pickle")
+        state = {"epoch": epoch, "model": self.model.state_dict(),
+                 "best_loss": self.best_loss, "best_metric": self.best_metric}
+        if backend == "orbax":
+            save_checkpoint(fname, dict(state, optimizer=self.optimizer.state_dict()),
+                            backend, self.group)
+        else:
+            opt = self.optimizer.full_state_dict()  # a collective under ZeRO-1
+            if self.is_main:
+                save_checkpoint(fname, dict(state, optimizer=opt), backend)
+            if self.group is not None:
+                dist.barrier(self.group)
+        self.logger.write(f"Save model to {fname}{'.dcp' if backend == 'orbax' else ''}\n")
 
     def load_pretrain(self, path):
-        state = load_checkpoint(path)
+        """Weights, and the optimizer's state where it maps, from a
+        checkpoint in any form `utils.checkpoint.read_checkpoint` reads."""
+        state = read_checkpoint(path)
         self.model.load_state_dict(partial_load(state["model"], self.model.state_dict()))
-        try:
-            self.optimizer.load_state_dict(state["optimizer"])
-        except (KeyError, ValueError):
-            self.logger.write("optimizer state incompatible; reinitialised\n")
-        self.start_epoch = state.get("epoch", 0) + 1
+        if state["optimizer"] is None:
+            self.logger.write("the checkpoint's optimizer state is not the port's (the JAX "
+                              "package's optax state, or none); reinitialised\n")
+        else:
+            try:
+                self.optimizer.load_state_dict(state["optimizer"])
+            except (KeyError, ValueError):
+                self.logger.write("optimizer state incompatible; reinitialised\n")
+        self.start_epoch = int(state.get("epoch", 0)) + 1
         self.best_loss = state.get("best_loss", self.best_loss)
         self.best_metric = state.get("best_metric", self.best_metric)
         self.logger.write(f"Loaded pretrained model from {path} at epoch {self.start_epoch}\n")

@@ -262,11 +262,13 @@ def _port_files():
 
 
 def test_port_imports_no_jax():
-    """No file of the port, and not chip_smoke.py, imports jax, flax, optax
-    or the JAX package."""
+    """No file of the port (parallel/ included), and not chip_smoke.py,
+    imports jax, flax, optax or the JAX package."""
     banned = {"jax", "flax", "optax", "pcaccumulation_tpu"}
     found = []
-    for path in _port_files():
+    files = _port_files()
+    assert REPO / "pcaccumulation_tpu_torch" / "parallel" / "mesh.py" in files
+    for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -285,7 +287,7 @@ def test_port_imports_no_jax():
             "pcaccumulation_tpu_torch.train.tester, pcaccumulation_tpu_torch.evaluation, "
             "pcaccumulation_tpu_torch.serve, pcaccumulation_tpu_torch.track, "
             "pcaccumulation_tpu_torch.utils.checkpoint, pcaccumulation_tpu_torch.data.ground, "
-            "pcaccumulation_tpu_torch.train.sf_metrics; "
+            "pcaccumulation_tpu_torch.train.sf_metrics, pcaccumulation_tpu_torch.parallel.mesh; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'pcaccumulation_tpu')], sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
