@@ -2,7 +2,14 @@
 
     python3 chip_smoke.py [--only kernels]
 
-Builds the port's CUDA kernels from `pcaccumulation_tpu_torch/csrc/`, holds
+Builds the port's CUDA kernels from `pcaccumulation_tpu_torch/csrc/` and its
+native host library from `pcaccumulation_tpu_torch/native/pcacc_host.cpp`
+(the host compiler; a failed build ends the run with its output), holds
+the host library against numpy references on the card's host
+(`host_prep_phase`: the voxeliser against a first-come reference with and
+without pillar overflow, the counting sort against the stable argsort,
+`prep_sample`'s stages timed on the native path and under
+`PCACC_NATIVE=0`, at the default and the nuScenes smoke scans), holds
 each kernel and each kernel's gradient against its plain PyTorch version on
 the card (K1 seg_pool and its gradient at the tile edges, two calls
 bit-identical, timed through the wrapper and through the C entry point;
@@ -54,7 +61,10 @@ the ego head sees background:
   config's dtype, nothing else), timed on the host clock and the step on
   CUDA events; `predict_stream` over 8 scans against 8 `predict` calls, the
   serial and streamed rates in sequences per second and the H2D bytes per
-  call; `export` on the card and `ExportedPredictor` on the artifact
+  call; the host side of one predict split by stage (`serve_host_split`),
+  and predict, serial and streamed again on numpy's preparation path
+  (`PCACC_NATIVE=0`) in the same process; `export` on the card and
+  `ExportedPredictor` on the artifact
   (labels equal, floats within 1e-5, the same launch counts); the tracker
   over the streamed outputs; and on the default config with both ICPs at
   50 iterations (3 scans, export included: K4 100 launches per predict,
@@ -1991,8 +2001,113 @@ def output_spread(a: dict, b: dict) -> dict:
     return out
 
 
+def first_come_voxelize(points, time_idx, voxel, pc_range, n_sweeps: int, max_pillars: int):
+    """The native voxeliser's semantics in numpy (the reference of
+    `host_prep_phase`): the JAX package's numpy voxeliser with pillar ids
+    ranked by the index of each pillar's first point instead of by key,
+    and `in_range` the points that got a pillar."""
+    pc = np.asarray(pc_range, np.float32)
+    vs = np.asarray(voxel, np.float32)
+    nx, ny, nz = np.round((pc[3:] - pc[:3]) / vs).astype(np.int64)
+    c = np.floor((points - pc[:3]) / vs).astype(np.int64)
+    t = np.asarray(time_idx, np.int64)
+    ok = ((c[:, 0] >= 0) & (c[:, 0] < nx) & (c[:, 1] >= 0) & (c[:, 1] < ny)
+          & (c[:, 2] >= 0) & (c[:, 2] < nz) & (t >= 0) & (t < n_sweeps))
+    key = (t * ny + c[:, 1]) * nx + c[:, 0]
+    uniq, first, inverse = np.unique(key[ok], return_index=True, return_inverse=True)
+    by_arrival = np.argsort(first)
+    rank = np.empty_like(by_arrival)
+    rank[by_arrival] = np.arange(len(uniq))
+    p2v = np.full(len(points), max_pillars, np.int32)
+    p2v[ok] = np.minimum(rank[inverse.ravel()], max_pillars)
+    m = min(len(uniq), max_pillars)
+    kept = uniq[by_arrival[:m]]
+    coords = np.zeros((max_pillars, 3), np.int32)
+    coords[:m] = np.stack([kept // (nx * ny), (kept // nx) % ny, kept % nx], 1)
+    valid = np.zeros(max_pillars, bool)
+    valid[:m] = True
+    return coords, valid, p2v, p2v < max_pillars
+
+
+PREP_STAGES = ("crop_ground", "voxelise", "sort", "gather", "pad")
+
+
+def host_prep_phase(smi: str) -> dict:
+    """The native host library on the card's host, at the default and the
+    nuScenes smoke scans (`default_samples`, 3 each):
+    - `native_voxelize` on scan 0's raw points (out-of-range ones
+      included) `np.array_equal` to `first_come_voxelize`, at as many
+      pillars as the scan has and at half of them (overflow);
+    - `native_sort_by_key` of those ids equal to the stable argsort of the
+      ids clamped into [0, max_pillars];
+    - `prep_sample` (labels on, as training prepares) per stage, median ms
+      of 10 calls over the 3 scans, on the native path and under
+      `PCACC_NATIVE=0`, in that order, in one process; both give sorted
+      ids and as many valid points.
+    Returns {config: {path: {stage: ms}}}."""
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data import voxelizer
+    from pcaccumulation_tpu_torch.data.dataset import prep_sample
+    from pcaccumulation_tpu_torch.native.host import native_sort_by_key, native_voxelize
+    from pcaccumulation_tpu_torch.profile_forward import default_samples
+
+    out = {}
+    saved = voxelizer._USE_NATIVE
+    for name, path in (("default", None), ("nuscenes", "configs/nuscene.yaml")):
+        cfg = load_config(path)
+        vg = cfg["voxel_generator"]
+        raws = default_samples(cfg, 3)
+        pts, tid = raws[0]["raw_points"], raws[0]["time_indice"]
+        grid = (vg["voxel_size"], vg["range"], vg["n_sweeps"])
+        n_distinct = int(first_come_voxelize(pts, tid, *grid, len(pts))[1].sum())
+        checks = []
+        for cap in (n_distinct, n_distinct // 2):  # every pillar placed; overflow
+            got = native_voxelize(pts, tid, *grid, cap)
+            want = first_come_voxelize(pts, tid, *grid, cap)
+            bad = [k for k, g, w in zip(("coords", "valid", "pillar_of_point", "in_range"),
+                                        got, want)
+                   if g.dtype != w.dtype or not np.array_equal(g, w)]
+            if bad:
+                fail(f"host prep {name}: native_voxelize at max_pillars {cap} differs from the "
+                     f"first-come reference in {bad}")
+            order = native_sort_by_key(got[2], cap)
+            if not np.array_equal(order, np.argsort(np.clip(got[2], 0, cap), kind="stable")):
+                fail(f"host prep {name}: native_sort_by_key at {cap} buckets differs from the "
+                     f"stable argsort")
+            checks.append(f"max_pillars {cap}: {int(got[1].sum())} pillars, "
+                          f"{int(got[3].sum())} of {len(pts)} points placed")
+        out[name], valid = {}, {}
+        try:
+            for prep_path in ("native", "numpy"):
+                voxelizer._USE_NATIVE = prep_path == "native"
+                rows = {k: [] for k in (*PREP_STAGES, "total")}
+                for i in range(11):
+                    st = {}
+                    sample = prep_sample(raws[i % 3], cfg, stage_ms=st)
+                    if i:  # the first call warms up
+                        for k in PREP_STAGES:
+                            rows[k].append(st[k])
+                        rows["total"].append(sum(st.values()))
+                if (np.diff(sample["pillar_of_point"]) < 0).any():
+                    fail(f"host prep {name} ({prep_path}): pillar ids not sorted")
+                valid[prep_path] = int(sample["point_valid"].sum())
+                out[name][prep_path] = {k: statistics.median(v) for k, v in rows.items()}
+        finally:
+            voxelizer._USE_NATIVE = saved
+        if valid["native"] != valid["numpy"]:
+            fail(f"host prep {name}: valid points native {valid['native']} against numpy "
+                 f"{valid['numpy']}")
+        log(f"host prep {name} ({len(pts)} raw points, {n_distinct} distinct pillars): "
+            f"native_voxelize equal to the first-come reference and native_sort_by_key to the "
+            f"stable argsort at " + "; ".join(checks) + f"; prep_sample median ms of 10 "
+            f"(native | PCACC_NATIVE=0): " + ", ".join(
+                f"{k} {out[name]['native'][k]:.3f} | {out[name]['numpy'][k]:.3f}"
+                for k in (*PREP_STAGES, "total")) + f" on the host of {smi}")
+    return out
+
+
 def serving_phase(port, name: str, cfg: dict, state: dict, n_scans: int, smi: str,
-                  export: bool) -> dict:
+                  export: bool, host_split: bool = False) -> dict:
     """The serving path on one config, on the card (`serve.py`): a
     Predictor on `state`, the random keypoint draw of its seed:
     - `predict` on the first scan against a direct `MotionNet(mode="test")`
@@ -2002,12 +2117,21 @@ def serving_phase(port, name: str, cfg: dict, state: dict, n_scans: int, smi: st
       step alone on CUDA events; `predict` over `n_scans` scans back to back
       (serial) and `predict_stream` over them (streamed), in sequences per
       second, the stream held against the serial results;
+    - with `host_split`: the host side of one predict by stage, median ms
+      of 10 (`serve_host_split`), on the native preparation path and under
+      `PCACC_NATIVE=0`; then serial and streamed predicts on numpy's path
+      in this process, the stream held against the serial results;
     - with `export`: `export` on the card, `ExportedPredictor` on the
       artifact: labels equal to the live Predictor's, floats within 1e-5,
       the same launch counts;
     - the tracker over the streamed outputs.
     Returns the phase's numbers."""
-    from pcaccumulation_tpu_torch.profile_forward import default_samples
+    from pcaccumulation_tpu_torch.data import voxelizer
+    from pcaccumulation_tpu_torch.profile_forward import (
+        default_samples,
+        print_host_split,
+        serve_host_split,
+    )
     from pcaccumulation_tpu_torch.serve import ExportedPredictor, Predictor
     from pcaccumulation_tpu_torch.track import ClusterTracker, centroids_from_labels
 
@@ -2096,8 +2220,43 @@ def serving_phase(port, name: str, cfg: dict, state: dict, n_scans: int, smi: st
             problems.append(f"predict_stream item {i} vs predict: labels differ {labels}, "
                             f"floats {d:.3e}")
 
-    # ---- export on the card, the artifact served ----
+    # ---- the host split by stage; numpy's preparation path beside native ----
     res = {}
+    if host_split:
+        split = serve_host_split(pred, scans, 10)
+        print_host_split(split, f"serving {name} on {smi}", 10)
+        saved = voxelizer._USE_NATIVE
+        voxelizer._USE_NATIVE = False
+        try:
+            t1 = time.perf_counter()
+            serial_np = [pred.predict(*s) for s in scans]
+            serial_np_s = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            streamed_np = list(pred.predict_stream(iter(scans), prefetch=2, depth=2))
+            stream_np_s = time.perf_counter() - t1
+        finally:
+            voxelizer._USE_NATIVE = saved
+        for i, (a, b) in enumerate(zip(streamed_np, serial_np)):
+            labels, d = serve_diff(a, b)
+            if labels or d > 1e-5:
+                problems.append(f"numpy path: predict_stream item {i} vs predict: labels "
+                                f"differ {labels}, floats {d:.3e}")
+        if len(streamed_np) != n_scans:
+            problems.append(f"numpy path: predict_stream gave {len(streamed_np)} results")
+        for path in ("native", "numpy"):
+            row = split[path]
+            res[f"host_ms_{path}"] = row["host"]
+            res[f"split_predict_ms_{path}"] = row["predict"]
+        res["serial_seq_s_numpy"] = n_scans / serial_np_s
+        res["stream_seq_s_numpy"] = n_scans / stream_np_s
+        log(f"serving {name}, numpy's preparation path (PCACC_NATIVE=0) in this process: "
+            f"predict median {split['numpy']['predict']:.3f} ms against native "
+            f"{split['native']['predict']:.3f}; host side (every stage but the step) "
+            f"{res['host_ms_numpy']:.3f} against {res['host_ms_native']:.3f} ms; serial "
+            f"{res['serial_seq_s_numpy']:.3f} sequences/s, predict_stream (depth 2) "
+            f"{res['stream_seq_s_numpy']:.3f}; on {smi}")
+
+    # ---- export on the card, the artifact served ----
     if export:
         tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
         try:
@@ -2878,6 +3037,7 @@ def main() -> None:
         row_shift_blocks_plain,
     )
     from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_backward, seg_pool_plain
+    from pcaccumulation_tpu_torch.native import host
     from pcaccumulation_tpu_torch.profile_forward import calibrate_heads, default_scenes
 
     # ---- 1. device --------------------------------------------------------
@@ -2896,6 +3056,10 @@ def main() -> None:
     build.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, sm_90a, one process per source, "
         f"in parallel)")
+    t0 = time.perf_counter()
+    host.get_lib()  # raises with the compiler's output
+    log(f"host library: {time.perf_counter() - t0:.1f} s "
+        f"({host.compiler_version().splitlines()[0]}, {' '.join(host.CXX_FLAGS)})")
     if only_kernels:
         log("ptxas on csrc/segscan.cu:\n" + build.ptxas_report("segscan").strip())
 
@@ -2956,6 +3120,9 @@ def main() -> None:
               flush=True)
         log("--only kernels: the build and the kernel phases passed; no path was driven")
         return
+
+    # ---- 4d. the native host library against numpy, prep_sample by stage ----
+    host_prep = host_prep_phase(smi)
 
     # ---- 5. main path: default config, seeded weights ---------------------
     cfg = load_config()
@@ -3068,9 +3235,10 @@ def main() -> None:
     # ---- 6g. serving: Predictor, predict_stream, export, the tracker ---------
     cfg_s = load_config("configs/nuscene.yaml", ["--train.ckpt_backend=pickle"])
     serve_ms = {"nuscenes_bf16": serving_phase(port, "nuscenes_bf16", cfg_s, nus_state, 8, smi,
-                                               export=True),
+                                               export=True, host_split=True),
                 "default_f32": serving_phase(port, "default_f32", load_config(),
-                                             model.state_dict(), 8, smi, export=False)}
+                                             model.state_dict(), 8, smi, export=False,
+                                             host_split=True)}
     # both ICPs at 50 iterations, exported: K4 inside the graph
     cfg_icp = load_config(None, ["--pose_estimation.icp=true", "--tpointnet.icp=true"])
     serve_ms["default_f32_icp"] = serving_phase(port, "default_f32_icp", cfg_icp,
@@ -3307,7 +3475,9 @@ def main() -> None:
         + " " + " ".join(f"nuscenes_full_{k}_ms {v:.3f}" for k, v in nus_full_ms.items())
         + " " + " ".join(f"nuscenes_train_{k} {v:.3f}" for k, v in remat.items())
         + " " + " ".join(f"train_{k} {v:.3f}" for k, v in det_ms.items())
-        + f" nuscenes_ddp_world1_ms {ddp['ddp_ms']:.3f} nuscenes_plain_ms {ddp['plain_ms']:.3f}"
+        + f" nuscenes_ddp_world1_ms {ddp['ddp_ms']:.3f} nuscenes_plain_ms {ddp['plain_ms']:.3f} "
+        + " ".join(f"prep_{c}_{p}_ms {r['total']:.3f}" for c, rows in host_prep.items()
+                   for p, r in rows.items())
         + f" on {smi}")
 
     print(json.dumps({"kernels": list(kernels.values())}), flush=True)

@@ -4,10 +4,13 @@ padded arrays (the port's copy of the JAX package's `data/dataset.py`)."""
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 
+from pcaccumulation_tpu_torch.data import voxelizer
 from pcaccumulation_tpu_torch.data.voxelizer import pad_sample, voxelize
+from pcaccumulation_tpu_torch.native.host import native_sort_by_key
 
 
 def _random_aug_tsfm(rng, rot_aug, shift_range):
@@ -22,8 +25,24 @@ def _random_aug_tsfm(rng, rot_aug, shift_range):
     return tsfm
 
 
+class _Laps:
+    """Adds the host-clock ms since the previous lap to `stage_ms[name]`;
+    does nothing without a dict."""
+
+    def __init__(self, stage_ms: dict | None):
+        self.stage_ms = stage_ms
+        self.t = time.perf_counter()
+
+    def __call__(self, name: str) -> None:
+        if self.stage_ms is not None:
+            now = time.perf_counter()
+            self.stage_ms[name] = self.stage_ms.get(name, 0.0) + (now - self.t) * 1e3
+            self.t = now
+
+
 def prep_sample(data: dict, cfg: dict, augment: bool = False,
-                rng: np.random.Generator | None = None, with_labels: bool = True) -> dict:
+                rng: np.random.Generator | None = None, with_labels: bool = True,
+                stage_ms: dict | None = None) -> dict:
     """Augment (optionally), crop, remove ground, voxelise, sort points by
     pillar id and pad to the static capacities. The augmentation moves the
     points by a random SE(2) transform, adds noise and scales them, and
@@ -32,7 +51,15 @@ def prep_sample(data: dict, cfg: dict, augment: bool = False,
 
     with_labels=False (the serving path, whose labels are neutral zeros)
     reads no label channel and gathers none: the four label slots hold
-    zeros. The keys and shapes are the same either way."""
+    zeros. The keys and shapes are the same either way.
+
+    The voxeliser and the sort are native (`native/host.py`) unless
+    `PCACC_NATIVE=0` (`data/voxelizer.py`); both paths give the JAX
+    package's sample in the same mode. With a `stage_ms` dict, the host
+    ms of each stage are added to it: augment (with `augment`),
+    crop_ground (reading the inputs included), voxelise, sort, gather (the
+    points and labels in pillar order) and pad (`pad_sample`)."""
+    lap = _Laps(stage_ms)
     vg = cfg["voxel_generator"]
     cap = cfg["capacity"]
 
@@ -61,6 +88,7 @@ def prep_sample(data: dict, cfg: dict, augment: bool = False,
         ego_gt = (tsfm[None] @ ego_gt @ inv[None]).astype(np.float32)
         flat = inst_gt.reshape(-1, 4, 4)
         inst_gt = (tsfm[None] @ flat @ inv[None]).reshape(inst_gt.shape).astype(np.float32)
+        lap("augment")
 
     # 1. crop
     crop_xy, crop_z_min, crop_z_max = vg["crop_range"]
@@ -78,18 +106,24 @@ def prep_sample(data: dict, cfg: dict, augment: bool = False,
 
     sel_idx = np.flatnonzero(sel)
     points, time_idx = points[sel_idx], time_idx[sel_idx]
+    lap("crop_ground")
 
     # 3. voxelise at fixed capacity
     pillar_coords, pillar_valid, pillar_of_point, in_range = voxelize(
         points, time_idx, vg["voxel_size"], vg["range"], vg["n_sweeps"],
         cap["max_pillars"],
     )
+    lap("voxelise")
 
     # 4. sort points by pillar id: the segment pool (kernels/segscan.py)
     # requires non-decreasing ids. Invalid/overflow ids (== max_pillars)
-    # sort last. The stable sort gives the same order as the JAX
-    # package's native counting sort.
-    order = np.argsort(pillar_of_point, kind="stable")
+    # sort last. The counting sort and the stable argsort give one order,
+    # the JAX package's in either of its modes.
+    if voxelizer._USE_NATIVE:
+        order = native_sort_by_key(pillar_of_point, cap["max_pillars"])
+    else:
+        order = np.argsort(pillar_of_point, kind="stable")
+    lap("sort")
     points, time_idx = points[order], time_idx[order]
     pillar_of_point, in_range = pillar_of_point[order], in_range[order]
     if with_labels:
@@ -98,6 +132,7 @@ def prep_sample(data: dict, cfg: dict, augment: bool = False,
         inst, sem = inst[final_idx], sem[final_idx]
     else:  # one array for all four: pad_sample copies each into its own buffer
         sd = fb = inst = sem = np.zeros(order.shape[0], np.int32)
+    lap("gather")
 
     sample = {
         "points": points,
@@ -113,7 +148,9 @@ def prep_sample(data: dict, cfg: dict, augment: bool = False,
         "pillar_of_point": pillar_of_point,
         "point_valid": in_range & (pillar_of_point < cap["max_pillars"]),
     }
-    return pad_sample(sample, cap["max_points"], cap["max_instances"])
+    out = pad_sample(sample, cap["max_points"], cap["max_instances"])
+    lap("pad")
+    return out
 
 
 class SceneDataset:

@@ -17,7 +17,9 @@ current one, and batches still come in order:
   reaches the consumer with its traceback; a worker that dies without one
   is found by polling its liveness. Workers run numpy only and return
   numpy: they never touch CUDA, whose context a forked child cannot use
-  (the caller pins and copies to the card as in thread mode).
+  (the caller pins and copies to the card as in thread mode). On the
+  native preparation path (`data/voxelizer.py`) the parent loads the host
+  library before it forks, so the workers inherit it and never build it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from pcaccumulation_tpu_torch.data import voxelizer
+from pcaccumulation_tpu_torch.native import host
 
 
 def collate(samples: list[dict]) -> dict:
@@ -130,7 +135,9 @@ class make_loader:
         if not batches:
             return
         w = min(self.num_workers, len(batches))
-        # fork: the workers inherit the dataset instead of unpickling it
+        if voxelizer._USE_NATIVE:
+            host.get_lib()  # raises here if it cannot be built
+        # fork: the workers inherit the dataset and the loaded host library
         ctx = multiprocessing.get_context("fork")
         procs, qs = [], []
         for i in range(w):

@@ -1,8 +1,13 @@
-"""Fixed-capacity 4D (x, y, t) pillar voxelisation — host side, numpy.
+"""Fixed-capacity 4D (x, y, t) pillar voxelisation — host side.
 
-The port's copy of the JAX package's `data/voxelizer.py` (numpy path only).
-It emits padded, static-shape arrays, so the model never sees a dynamic
-point or pillar count.
+The port's copy of the JAX package's `data/voxelizer.py`. It emits padded,
+static-shape arrays, so the model never sees a dynamic point or pillar
+count. As in the JAX package, the native C++ voxeliser
+(`native/host.py`) is the default path: pillar ids first-come. With
+`PCACC_NATIVE=0` in the environment the numpy path runs instead: pillar
+ids by sorted key, so other points survive the `max_points` cap
+(`pad_sample`). The flag is read once, at import (`_USE_NATIVE`); the
+native path never falls back to numpy.
 
 Conventions:
   * pillar key = (t, y, x); z is collapsed (one 8 m z voxel covers the
@@ -14,7 +19,13 @@ Conventions:
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from pcaccumulation_tpu_torch.native.host import native_voxelize
+
+_USE_NATIVE = os.environ.get("PCACC_NATIVE", "1") != "0"
 
 
 def voxelize(
@@ -39,8 +50,12 @@ def voxelize(
       pillar_coords: [M, 3] int32 (t, y, x), zero padded.
       pillar_valid:  [M] bool.
       pillar_of_point: [n] int32 in [0, M]; M == invalid/overflow.
-      in_range: [n] bool, whether the point fell inside the grid.
+      in_range: [n] bool, whether the point fell inside the grid (native
+        path: whether it got a pillar).
     """
+    if _USE_NATIVE:
+        return native_voxelize(points, time_idx, voxel_size, pc_range, n_sweeps, max_pillars)
+
     pc_range = np.asarray(pc_range, np.float32)
     voxel_size = np.asarray(voxel_size, np.float32)
     grid = np.round((pc_range[3:] - pc_range[:3]) / voxel_size).astype(np.int64)

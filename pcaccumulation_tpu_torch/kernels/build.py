@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a shared
 library with a plain C interface and loaded with `ctypes`. A library is
 built at first use into `_build/` inside the package, under a name keyed by
 a hash of the sources and flags, so an edited source is rebuilt and an
-unchanged one is reused. Importing this module builds nothing.
+unchanged one is reused. Importing this module builds nothing. The
+compile into a temporary file and its rename (`start_compile`,
+`finish_compile`) also build the host library (`native/host.py`).
 """
 
 from __future__ import annotations
@@ -67,27 +69,39 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, str, Path] | None:
-    """Start nvcc for one source into a temporary file; None if built."""
-    target = library_path(name)
+def start_compile(argv: list[str], source: Path, target: Path):
+    """Start `argv -o <tmp> source` into a temporary file beside `target`;
+    None if `target` is built. Shared by the CUDA kernels and the host
+    library (`native/host.py`): several processes may build one target at
+    once, and each renames its own complete file onto it."""
     if target.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    target.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, tmp, target
+    try:
+        proc = subprocess.Popen([*argv, "-o", tmp, str(source)], stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+    except OSError as e:
+        os.unlink(tmp)
+        raise RuntimeError(f"{argv[0]} could not be started for {source}: {e}") from e
+    return proc, tmp, target, source
 
 
-def _finish_build(name: str, job) -> None:
-    proc, tmp, target = job
+def finish_compile(job) -> None:
+    """Wait for a `start_compile` job; raise with the compiler's output if
+    it failed, else move the file onto its target."""
+    proc, tmp, target, source = job
     out, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
+        raise RuntimeError(f"{proc.args[0]} failed for {source}:\n{out}")
     os.replace(tmp, target)  # atomic: a concurrent build sees all or nothing
+
+
+def _start_build(name: str):
+    """Start nvcc for csrc/<name>.cu; None if built."""
+    return start_compile([_nvcc(), *NVCC_FLAGS], CSRC / f"{name}.cu", library_path(name))
 
 
 def build_all() -> None:
@@ -99,7 +113,7 @@ def build_all() -> None:
         if job is None:
             continue
         try:
-            _finish_build(name, job)
+            finish_compile(job)
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
@@ -123,7 +137,7 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
     job = _start_build(name)
     if job is not None:
-        _finish_build(name, job)
+        finish_compile(job)
     lib = ctypes.CDLL(str(library_path(name)))
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)

@@ -14,7 +14,10 @@ warms it up, then measures:
   config's 50 iterations, the FB and MOS heads set to the scene's label
   shares (`calibrate_heads`); --serve times the test-mode forward as the
   serving step runs it, with the config's ICP setting (off in the shipped
-  configs), the heads set as with --test;
+  configs), the heads set as with --test, and first splits the host side
+  of one `Predictor.predict` on those weights (`serve_host_split`): the
+  median host ms of each stage, on the native preparation path and on
+  numpy's (`PCACC_NATIVE=0`), in one process;
 - each stage's device time, from CUDA events around the forward's
   `motionnet.<stage>` ranges (see models/motionnet.py; the ICP ranges
   `icp_ego` and `icp_instance` lie inside `ego` and `reconstruction`, so
@@ -276,6 +279,74 @@ def _host_ms(run, iters: int) -> list[float]:
     return out
 
 
+# one predict's stages, in order: prep_sample's (data/dataset.py), then the
+# Predictor's (serve.py); "step" is the device's share, the rest the host's
+SERVE_STAGES = ("crop_ground", "voxelise", "sort", "gather", "pad", "collate", "h2d", "step",
+                "fetch", "postproc")
+
+
+def serve_host_split(pred, scans: list, iters: int = ITERS) -> dict:
+    """{"native" | "numpy": {stage: median ms}} over `iters` predicts of the
+    raw (points, time_idx) `scans` in turn, after one warm-up, with
+    `data/voxelizer.py`'s flag set for each path and put back after. Each
+    stage runs as `Predictor.predict` runs it and ends in a synchronise:
+    SERVE_STAGES, their sum ("total"), the host's part of it ("host":
+    every stage but the step), and "predict", the median of `iters` whole
+    predicts on the host clock."""
+    from pcaccumulation_tpu_torch.data import voxelizer
+    from pcaccumulation_tpu_torch.data.dataset import prep_sample
+    from pcaccumulation_tpu_torch.data.loader import collate
+
+    def since(t0: float) -> float:
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    saved, out = voxelizer._USE_NATIVE, {}
+    try:
+        for path in ("native", "numpy"):
+            voxelizer._USE_NATIVE = path == "native"
+            rows = collections.defaultdict(list)
+            for i in range(iters + 1):
+                st = {}
+                sample = prep_sample(pred._wrap(*scans[i % len(scans)]), pred.cfg,
+                                     with_labels=False, stage_ms=st)
+                t0 = time.perf_counter()
+                batch = collate([sample])
+                st["collate"] = since(t0)
+                t0 = time.perf_counter()
+                dbatch = pred._to_device(batch)
+                st["h2d"] = since(t0)
+                with torch.inference_mode():
+                    t0 = time.perf_counter()
+                    res = pred._run_step(dbatch)
+                    st["step"] = since(t0)
+                    t0 = time.perf_counter()
+                    fetched = pred._fetch(res)
+                    st["fetch"] = since(t0)
+                t0 = time.perf_counter()
+                pred._postproc(batch, fetched)
+                st["postproc"] = since(t0)
+                if i:  # the first call warms up
+                    for k in SERVE_STAGES:
+                        rows[k].append(st[k])
+                    rows["total"].append(sum(st[k] for k in SERVE_STAGES))
+                    rows["host"].append(rows["total"][-1] - st["step"])
+            out[path] = {k: statistics.median(v) for k, v in rows.items()}
+            out[path]["predict"] = statistics.median(_host_ms(
+                lambda i: pred.predict(*scans[i % len(scans)]), iters))
+    finally:
+        voxelizer._USE_NATIVE = saved
+    return out
+
+
+def print_host_split(split: dict, what: str, iters: int = ITERS) -> None:
+    print(f"host split of one predict ({what}), median ms of {iters} calls per stage:")
+    cols = (*SERVE_STAGES, "total", "host", "predict")
+    print("  " + " ".join(f"{k:>11s}" for k in ("path", *cols)))
+    for path, row in split.items():
+        print("  " + f"{path:>11s} " + " ".join(f"{row[k]:11.3f}" for k in cols))
+
+
 def test_mode_config(cfg: dict, icp_max_iter: int = 50) -> dict:
     """cfg with both ICP refinements on at `icp_max_iter` iterations."""
     cfg["pose_estimation"].update(icp=True, icp_max_iter=icp_max_iter)
@@ -284,15 +355,24 @@ def test_mode_config(cfg: dict, icp_max_iter: int = 50) -> dict:
 
 
 def profile_val(port, cfg, smi: str, mode: str = "val",
-                name: str = "configs/default.yaml") -> None:
+                name: str = "configs/default.yaml", serve: bool = False) -> None:
+    from pcaccumulation_tpu_torch.data.dataset import prep_sample
     from pcaccumulation_tpu_torch.data.loader import collate
 
     cfg["pose_estimation"]["deterministic_sampling"] = True
-    batches = [port.to_device(collate([s])) for s in default_scenes(cfg, 3)]
+    raw = default_samples(cfg, 3)
+    batches = [port.to_device(collate([prep_sample(s, cfg)])) for s in raw]
     torch.manual_seed(SEED)
     model = port.build_model(cfg)
     if mode == "test":
         calibrate_heads(model, batches[0])
+    split = {}
+    if serve:
+        from pcaccumulation_tpu_torch.serve import Predictor
+
+        pred = Predictor(cfg, state_dict=model.state_dict())
+        split = serve_host_split(pred, [(s["raw_points"], s["time_indice"]) for s in raw])
+        print_host_split(split, f"{name} on {smi}")
 
     def run(i):
         model(batches[i % len(batches)], mode=mode)
@@ -322,7 +402,7 @@ def profile_val(port, cfg, smi: str, mode: str = "val",
         "card": smi, "mode": mode, "forward_ms": fwd_ms, "forward_ms_all": host_ms,
         "stage_ms": stages,
         "stage_busy_ms": stage_busy, "stage_launches": stage_launches,
-        **_summary_json(summary, ITERS, "forward"),
+        **_summary_json(summary, ITERS, "forward"), **({"host_split_ms": split} if serve else {}),
     }), flush=True)
 
 
@@ -432,7 +512,7 @@ def main(argv: list[str]) -> None:
     elif "--test" in modes:
         profile_val(port, test_mode_config(cfg), smi, mode="test", name=name)
     elif "--serve" in modes:
-        profile_val(port, cfg, smi, mode="test", name=name)
+        profile_val(port, cfg, smi, mode="test", name=name, serve=True)
     else:
         profile_val(port, cfg, smi, name=name)
 

@@ -190,19 +190,23 @@ class Predictor:
         return self._step(*args)
 
     def _invoke(self, dbatch: dict):
-        """Launch the step and the copy of its outputs to the host (pinned,
+        """Launch the step and the copy of its outputs to the host; returns
+        what `_fetch` returns."""
+        with torch.inference_mode():
+            return self._fetch(self._run_step(dbatch))
+
+    def _fetch(self, out: dict):
+        """Launch the copy of the step's outputs to the host (pinned,
         `non_blocking` on the card); returns (host outputs, an event that
         marks the copy's end, or None on the CPU)."""
-        with torch.inference_mode():
-            out = self._run_step(dbatch)
-            if self.device.type != "cuda":
-                return out, None
-            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                    for k, v in out.items()}
-            for k, v in out.items():
-                host[k].copy_(v, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
+        if self.device.type != "cuda":
+            return out, None
+        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                for k, v in out.items()}
+        for k, v in out.items():
+            host[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
         return host, done
 
     def _postproc(self, batch: dict, fetched) -> dict:

@@ -287,7 +287,8 @@ def test_port_imports_no_jax():
             "pcaccumulation_tpu_torch.train.tester, pcaccumulation_tpu_torch.evaluation, "
             "pcaccumulation_tpu_torch.serve, pcaccumulation_tpu_torch.track, "
             "pcaccumulation_tpu_torch.utils.checkpoint, pcaccumulation_tpu_torch.data.ground, "
-            "pcaccumulation_tpu_torch.train.sf_metrics, pcaccumulation_tpu_torch.parallel.mesh; "
+            "pcaccumulation_tpu_torch.train.sf_metrics, pcaccumulation_tpu_torch.parallel.mesh, "
+            "pcaccumulation_tpu_torch.native.host; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'pcaccumulation_tpu')], sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

@@ -186,16 +186,22 @@ def test_val_forward_matches_jax(case, train_bn, record_property):
     assert np.abs(got["ego_motion_est"][:, 1:, :3, 3]).max() > 1e-2
 
 
-def test_port_data_copies_match_jax(monkeypatch):
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_port_data_copies_match_jax(monkeypatch, path):
     """The port's generate_sample -> prep_sample -> collate gives the JAX
-    package's batch (numpy voxeliser on the JAX side)."""
+    package's batch, both packages on the native voxeliser (their default)
+    or both on numpy (PCACC_NATIVE=0)."""
     import pcaccumulation_tpu.data.voxelizer as jvox
+    import pcaccumulation_tpu_torch.data.voxelizer as tvox
     from pcaccumulation_tpu_torch.config import load_config as t_load_config
     from pcaccumulation_tpu_torch.data.dataset import prep_sample as t_prep
     from pcaccumulation_tpu_torch.data.loader import collate as t_collate
     from pcaccumulation_tpu_torch.data.synthetic import generate_sample as t_gen
 
-    monkeypatch.setattr(jvox, "_USE_NATIVE", False)
+    if path == "numpy":
+        monkeypatch.setattr(jvox, "_USE_NATIVE", False)
+        monkeypatch.setattr(tvox, "_USE_NATIVE", False)
+    assert jvox._USE_NATIVE == tvox._USE_NATIVE == (path == "native")
     for path in (None, "configs/waymo.yaml"):
         assert t_load_config(path) == load_config(path)
     cfg = config("default")

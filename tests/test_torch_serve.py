@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import pcaccumulation_tpu.data.voxelizer as jvox
 from pcaccumulation_tpu.data.dataset import prep_sample as jax_prep_sample
 from pcaccumulation_tpu.data.loader import collate
 from pcaccumulation_tpu.ops import cluster as jcl
@@ -66,11 +65,9 @@ def served():
     head["offset_head"]["fc1"]["bias"][:] = 0.0
     port.model.load_state_dict(state_dict_from_jax(params, stats))
     jaxp = JaxPredictor(cfg, variables={"params": params, "batch_stats": stats})
-    with pytest.MonkeyPatch.context() as mp:
-        # the numpy voxeliser, whose pillar numbering (and so point order)
-        # the port's copy has
-        mp.setattr(jvox, "_USE_NATIVE", False)
-        jax_out = [jaxp.predict(*s) for s in scans]
+    # both packages on their default, native, voxeliser: one pillar
+    # numbering, and so one point order
+    jax_out = [jaxp.predict(*s) for s in scans]
     return {
         "cfg": cfg, "scans": scans, "params": params, "stats": stats, "batch": batch,
         "port": port, "jax": jaxp, "jax_out": jax_out,
@@ -168,11 +165,10 @@ def test_predictor_wants_cuda_by_default(monkeypatch):
         Predictor(serve_config())
 
 
-def test_prep_sample_without_labels_matches_jax(served, monkeypatch):
+def test_prep_sample_without_labels_matches_jax(served):
     """Field by field against the JAX package's prep_sample(with_labels=
-    False) (numpy voxeliser), and equal to the labelled form but for the
-    zero labels."""
-    monkeypatch.setattr(jvox, "_USE_NATIVE", False)
+    False), both on their default, native, voxeliser, and equal to the
+    labelled form but for the zero labels."""
     cfg = served["cfg"]
     from pcaccumulation_tpu.data.synthetic import generate_sample
 

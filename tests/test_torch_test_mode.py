@@ -242,7 +242,6 @@ def make_tester_config():
 def tester_runs(tmp_path_factory):
     """The JAX Tester and the port's Tester over the 3 test scenes of
     data/synthetic on the same weights, each into its own results tree."""
-    import pcaccumulation_tpu.data.voxelizer as jvox
     from pcaccumulation_tpu.data.dataset import SceneDataset as JDataset
     from pcaccumulation_tpu.train.tester import Tester as JTester
     from pcaccumulation_tpu_torch.train.tester import Tester
@@ -252,9 +251,8 @@ def tester_runs(tmp_path_factory):
     cfg["path"]["dataset_base"] = os.path.join(repo, "data", "synthetic")
     jdir = str(tmp_path_factory.mktemp("jax_run"))
     with pytest.MonkeyPatch.context() as mp:
-        # the numpy voxeliser, whose point order the port's copy reproduces
-        # (the 4,000-point cap keeps an evenly strided subsample of it)
-        mp.setattr(jvox, "_USE_NATIVE", False)
+        # both packages on their default, native, voxeliser: one point order,
+        # so the 4,000-point cap keeps the same strided subsample of it
         sample = JDataset(cfg, "test", augment=False)[0]
         params, stats = random_variables(cfg, {k: v[None] for k, v in sample.items()}, seed=3)
         mp.chdir(jdir)  # the JAX Tester writes results/<exp> under the working directory

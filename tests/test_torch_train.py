@@ -220,19 +220,17 @@ def test_cli_val_epoch_on_synthetic_data(tmp_path, monkeypatch):
     assert len(list((tmp_path / "results" / "cli_test").glob("*/flow_error.npz"))) == 3
 
 
-def test_augmentation_and_loader_order_match_jax(monkeypatch):
+def test_augmentation_and_loader_order_match_jax():
     """The port's augmentation (with GT-pose conjugation) gives the JAX
     package's sample for the same random generator, and its loader gives
     the same shuffled batches, drop_last included, for the same seed."""
-    import pcaccumulation_tpu.data.voxelizer as jvox
     from pcaccumulation_tpu.data.dataset import prep_sample as j_prep
     from pcaccumulation_tpu.data.loader import make_loader as j_loader
     from pcaccumulation_tpu.data.synthetic import generate_sample
     from pcaccumulation_tpu_torch.data.dataset import prep_sample as t_prep
     from pcaccumulation_tpu_torch.data.loader import make_loader as t_loader
 
-    monkeypatch.setattr(jvox, "_USE_NATIVE", False)
-    cfg = config("default")
+    cfg = config("default")  # both packages on their default, native, voxeliser
     raw = generate_sample(seed=4, n_frames=5, n_static_clusters=8, n_dynamic=2,
                           pts_per_cluster=120, pts_per_object=90, area=6.0)
     want = j_prep(raw, cfg, augment=True, rng=np.random.default_rng(5))
