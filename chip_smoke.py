@@ -88,7 +88,12 @@ the ego head sees background:
   plain step, K1 and K2 launched on it, timed beside it); and
   `torchrun --nproc_per_node=1` over the CLI on the nuScenes preset with
   its orbax (torch.distributed.checkpoint) checkpoints, read back by the
-  Tester (`torchrun_cli_phase`).
+  Tester (`torchrun_cli_phase`);
+- the frame and spatial axes (`mesh_phase`): two processes sharing the
+  card over gloo, the default float32 val forward at F=2 and at S=2, the
+  nuScenes micro-step at F=2 in float32 and in bf16, and a predict at S=2,
+  each against this process's one-process run (K1 and K2 counted on each
+  rank, timed beside it).
 Any failure exits non-zero. The last two lines of stdout are the `kernels`
 JSON line and the result line `{"ok": true, "device": {...}}`. Without a
 CUDA device it exits 1 and prints no result. With `--only kernels` it stops
@@ -860,7 +865,8 @@ def flax_init(model: torch.nn.Module, seed: int) -> None:
                 mod.running_var.fill_(1.0)
 
 
-def leaf_criterion(grads_a: dict, grads_b: dict) -> tuple[int, int, float, float, str]:
+def leaf_criterion(grads_a: dict, grads_b: dict,
+                   what: str = "GPU vs CPU") -> tuple[int, int, float, float, str]:
     """The per-leaf gradient criterion of tests/test_full_parity.py: leaves
     above 1e-5 of the largest gradient norm must have rel-norm < 0.05 and
     cosine > 0.995. Returns (checked, noise, worst rel, worst cos, worst
@@ -878,10 +884,10 @@ def leaf_criterion(grads_a: dict, grads_b: dict) -> tuple[int, int, float, float
         cos = float(a @ b / (a.norm() * b.norm()))
         worst = max(worst, (rel, cos, n))
         if rel >= 0.05 or cos <= 0.995:
-            fail(f"GPU vs CPU gradient of {n}: rel-norm {rel:.3e}, cosine {cos:.6f}")
+            fail(f"{what} gradient of {n}: rel-norm {rel:.3e}, cosine {cos:.6f}")
         checked += 1
     if checked <= 3 * noise:
-        fail(f"GPU vs CPU gradients: {checked} leaves checked, {noise} below the noise floor")
+        fail(f"{what} gradients: {checked} leaves checked, {noise} below the noise floor")
     return checked, noise, worst[0], worst[1], worst[2]
 
 
@@ -1692,7 +1698,8 @@ def nuscenes_cli_phase(port) -> None:
 BF16_LEAF_REL, BF16_LEAF_COS = 0.5, 0.85  # PERF.md §6, PR 8: written before the first chip run
 
 
-def bf16_leaf_criterion(g16: dict, g32: dict, names: list) -> tuple[int, int, float, float, str]:
+def bf16_leaf_criterion(g16: dict, g32: dict, names: list,
+                        what: str = "bf16 vs float32") -> tuple[int, int, float, float, str]:
     """The bf16 gradient against the float32 one on the card, per leaf of
     `names` above a noise floor of 1e-5 of the largest float32 leaf norm:
     rel-norm < BF16_LEAF_REL and cosine > BF16_LEAF_COS (bf16 rounds each
@@ -1713,10 +1720,10 @@ def bf16_leaf_criterion(g16: dict, g32: dict, names: list) -> tuple[int, int, fl
         cos = float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
         worst = max(worst, (rel, cos, n))
         if rel >= BF16_LEAF_REL or cos <= BF16_LEAF_COS:
-            fail(f"bf16 vs float32 gradient of {n}: rel-norm {rel:.3e}, cosine {cos:.6f}")
+            fail(f"{what} gradient of {n}: rel-norm {rel:.3e}, cosine {cos:.6f}")
         checked += 1
     if checked <= noise:
-        fail(f"bf16 vs float32 gradients: {checked} leaves checked, {noise} below the noise floor")
+        fail(f"{what} gradients: {checked} leaves checked, {noise} below the noise floor")
     return checked, noise, worst[0], worst[1], worst[2]
 
 
@@ -3020,13 +3027,349 @@ def options_cli_phase(port) -> None:
         + f"; checkpoints {ckpts}; test dumps {dumps} ({time.perf_counter() - t0:.1f} s)")
 
 
+# the frame and spatial axes: two processes on the one card over gloo
+MESH_AXES = {"frame": (2, 1), "spatial": (1, 2)}
+MESH_FWD_KEYS = ("ego_motion_est", "rec_est", "offset_est", "mos_est", "fb_seg_est",
+                 "transformed_points", "fb_est_per_points", "fb_mask", "rec_mask")
+# tests/test_torch_mesh.py's tolerances (tests/test_parallel.py's atol of a
+# sharded forward), the decisions equal; but the ego pose within
+# tests/test_torch_motionnet.py's 2e-4 for a float32 forward whose
+# convolutions sum in another order: on the CPU the split keeps every
+# convolution's arithmetic (bit-equal there), on the card cuDNN picks a UNet
+# convolution's algorithm by the rows it gets (the UNet's output moves by
+# ~4e-8), and Sinkhorn and the SVD turn that into ~1.3e-5 of pose
+MESH_ATOL = {"ego_motion_est": 2e-4, "rec_est": 1e-4, "offset_est": 1e-4, "mos_est": 1e-4,
+             "fb_seg_est": 1e-4, "transformed_points": 1e-4}
+MESH_DECISIONS = ("fb_est_per_points", "fb_mask", "rec_mask")
+MESH_REPS = 5  # timed forwards, micro-steps and predicts per rank
+
+
+def mesh_configs() -> dict:
+    """The mesh phase's configs: the default float32 config (deterministic
+    keypoints, as the main path), the nuScenes preset for training (its
+    dtype set by the caller), the serving config (default, the random draw
+    of the Predictor's seed); the mesh factors are set by the caller."""
+    from pcaccumulation_tpu_torch.config import load_config
+
+    val = load_config()
+    val["pose_estimation"]["deterministic_sampling"] = True
+    train = load_config("configs/nuscene.yaml", ["--misc.mode=train",
+                                                  "--train.ckpt_backend=pickle"])
+    return {"val": val, "train": train, "serve": load_config()}
+
+
+def with_axes(cfg: dict, axis: str | None) -> dict:
+    import copy
+
+    cfg = copy.deepcopy(cfg)
+    f, s = MESH_AXES[axis] if axis else (1, 1)
+    cfg["parallel"].update(frame_devices=f, spatial_devices=s, num_devices=f * s)
+    return cfg
+
+
+def mesh_runs(port, setup: dict, split: bool) -> dict:
+    """What the mesh phase compares, on this process: the default float32
+    val forward on each axis, the nuScenes bf16 micro-step at F=2 and the
+    predict at S=2 (split False: the one-process runs, without the factors),
+    each with its launch counts (zeroed just before, read just after) and
+    MESH_REPS timings."""
+    from pcaccumulation_tpu_torch.parallel import mesh as pm
+    from pcaccumulation_tpu_torch.serve import Predictor
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+
+    cfgs, res = mesh_configs(), {}
+
+    def timed(fn) -> list:
+        times = []
+        for _ in range(MESH_REPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            end.record()
+            times.append(sync_ms(start, end))
+        return times
+
+    batch = port.to_device(setup["val_batch"])
+    for axis, (f, s) in MESH_AXES.items():
+        on = pm.make_mesh(f, s) if split else None
+        model = port.build_model(with_axes(cfgs["val"], axis if on else None))
+        model.load_state_dict(setup["val_state"])
+        with torch.no_grad(), pm.model_parallel(on):
+            zero_kernel_counts()
+            out = model(batch)
+            counts = kernel_counts()
+            times = timed(lambda: model(batch))
+        res[axis] = {"out": {k: out[k].cpu() for k in MESH_FWD_KEYS}, "counts": counts,
+                     "ms": times}
+
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool_backward
+
+    tbatch = port.to_device(setup["train_batch"])
+    for dtype in ("float32", "bfloat16"):
+        cfg_t = with_axes(cfgs["train"], "frame" if split else None)
+        cfg_t["precision"]["compute_dtype"] = dtype
+        model = port.build_model(cfg_t)
+        model.load_state_dict(setup["train_state"])
+        run_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+        try:
+            tr = Trainer(cfg_t, model, {"train": [None] * 2}, save_dir=run_dir)
+            seen = {}
+            update = tr.optimizer.update
+
+            def record(grads):
+                seen.setdefault("grads", {n: g.cpu() for (n, _), g in
+                                          zip(model.named_parameters(), grads)})
+                return update(grads)
+
+            tr.optimizer.update = record
+            zero_kernel_counts()
+            seg_pool_backward.launches = seg_pool_backward.launches_bf16 = 0
+            st = tr.train_step(tbatch, tr.step_generator(1, "train", 0))
+            counts = dict(kernel_counts(), **{"K1 bwd": seg_pool_backward.launches,
+                                              "K1 bwd-bf16": seg_pool_backward.launches_bf16})
+            # this rank's gradient before the mean over the ranks
+            local = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                     for n, p in model.named_parameters()}
+            stats = {k: float(v) for k, v in st.items() if not isinstance(v, dict)}
+            buffers = {n: b.cpu() for n, b in model.named_buffers() if "running_" in n}
+            times = timed(lambda: tr.train_step(tbatch, tr.step_generator(1, "train", 1)))
+        finally:
+            shutil.rmtree(run_dir, ignore_errors=True)
+        res[f"train_{dtype}"] = {"stats": stats, "grads": seen["grads"], "local": local,
+                                 "buffers": buffers, "counts": counts, "ms": times,
+                                 "shape": (tr.mesh.data, tr.mesh.frame, tr.mesh.spatial)}
+
+    on = pm.make_mesh(*MESH_AXES["spatial"]) if split else None
+    pred = Predictor(with_axes(cfgs["serve"], "spatial" if on else None),
+                     state_dict=setup["val_state"], mesh=on)
+    pred.predict(*setup["scan"])
+    zero_kernel_counts()
+    out = pred.predict(*setup["scan"])
+    counts = kernel_counts()
+    times = []
+    for _ in range(MESH_REPS):
+        t0 = time.perf_counter()
+        pred.predict(*setup["scan"])
+        times.append(1e3 * (time.perf_counter() - t0))
+    res["predict"] = {"out": out, "counts": counts, "ms": times}
+    if on is not None:
+        try:
+            pred.export(os.path.join(tempfile.gettempdir(), "chip_smoke_never.pt2"))
+            res["predict"]["export"] = "no error"
+        except NotImplementedError as e:
+            res["predict"]["export"] = str(e)
+    return res
+
+
+def mesh_rank(rank: int, port_no: int, out_dir: str) -> None:
+    """One of the mesh phase's two processes: joins a gloo group of 2 on
+    cuda:0 and runs `mesh_runs` on its meshes; writes rank<rank>.pt."""
+    import torch.distributed as dist
+
+    import pcaccumulation_tpu_torch as port
+    from pcaccumulation_tpu_torch.parallel import mesh as pm
+
+    dev = pm.init_distributed("cuda:0", init_method=f"tcp://127.0.0.1:{port_no}", world_size=2,
+                              rank=rank, timeout_s=300, backend="gloo")
+    if dev != torch.device("cuda", 0) or dist.get_backend() != "gloo":
+        fail(f"mesh rank {rank}: device {dev}, backend {dist.get_backend()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    setup = torch.load(os.path.join(out_dir, "setup.pt"), weights_only=False)
+    res = mesh_runs(port, setup, split=True)
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def mesh_phase(port, val_state: dict, val_scene: dict, nus_state: dict, smi: str) -> dict:
+    """The frame and spatial axes on the card: two processes sharing the one
+    H100 over gloo (NCCL refuses two ranks on one device), both on cuda:0,
+    at full width: the default float32 val forward at F=2 (T=5, B=1: rows
+    3/2) and at S=2 (bands 144/144), the nuScenes preset's train
+    micro-step at F=2 (B=1, T=11: rows 6/5, the random draw) in float32
+    and in its bf16, and `Predictor.predict` at S=2 on a default raw scan.
+    Each is held against this process's one-process run on the same
+    weights, batch and scan (`mesh_runs(split=False)`, before the ranks
+    start), both ranks the same bits: the forwards at `MESH_ATOL` with the
+    decisions equal; the float32 micro-step's loss terms within rtol 1e-5,
+    its gradient per leaf by the criterion of tests/test_parallel.py
+    (`leaf_criterion`), its running statistics within rtol 1e-5; the bf16
+    micro-step's loss terms within one bf16 rounding, its gradient by
+    `bf16_leaf_criterion` (bf16's own noise); the predict's floats within
+    1e-4 and labels equal, `export` refused. K1 and K2 launched on every
+    rank (counts zeroed just before each run). The times measure gloo and
+    two processes on one card, not what the axes would gain on several
+    cards. Returns the ranks' launch counts and the times."""
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.profile_forward import default_samples, default_scenes
+
+    t0 = time.perf_counter()
+    cfgs = mesh_configs()
+    raw = default_samples(cfgs["serve"], 1, first=SEED + 300)[0]
+    setup = {"val_state": {k: v.cpu() for k, v in val_state.items()},
+             "val_batch": collate([val_scene]),
+             "train_state": {k: v.cpu() for k, v in nus_state.items()},
+             "train_batch": collate(default_scenes(cfgs["train"], 1)),
+             "scan": (raw["raw_points"], raw["time_indice"])}
+    want = mesh_runs(port, setup, split=False)
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        torch.save(setup, os.path.join(out_dir, "setup.pt"))
+        here = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        port_no = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                                   str(r), str(port_no), out_dir], cwd=here, env=env,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=600)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"mesh rank {r}: rc {p.returncode}\n{text[-4000:]}")
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    k1_per = 2  # the pillar encoder's pools (depth 3) in both configs
+    faults = []  # every check is made; the phase fails at its end with all that missed
+    for axis in MESH_AXES:
+        a, b, ref = ranks[0][axis], ranks[1][axis], want[axis]
+        for k in MESH_FWD_KEYS:
+            if not torch.equal(a["out"][k], b["out"][k]):
+                faults.append(f"mesh {axis}: the two ranks' {k} differ")
+        for k in MESH_DECISIONS:
+            if not torch.equal(a["out"][k], ref["out"][k]):
+                faults.append(f"mesh {axis}: {k} differs from one process's")
+        errs = {k: float((a["out"][k] - ref["out"][k]).abs().max()) for k in MESH_ATOL}
+        for k, tol in MESH_ATOL.items():
+            if errs[k] > tol:
+                faults.append(f"mesh {axis}: {k} max abs err {errs[k]:.3e} against one process > {tol}")
+        for r, rk in enumerate(ranks):
+            if (rk[axis]["counts"]["K1"], rk[axis]["counts"]["K2"]) != (k1_per, 3):
+                faults.append(f"mesh {axis} rank {r}: launched {rk[axis]['counts']}, want K1 {k1_per}, "
+                     f"K2 3")
+        log(f"mesh {axis} (default float32 val forward, B=1, 2 processes on one card over gloo): "
+            f"both ranks the same bits, decisions equal to one process's, max abs err "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f"; launches per rank {[rk[axis]['counts'] for rk in ranks]}")
+
+    # biases directly before a train-mode BatchNorm: zero in exact arithmetic,
+    # cancellation residue here (tests/test_torch_parallel.py sets them aside)
+    structural_zero = ("seg_head.0.bias", "regressor.0.bias", "regressor.3.bias")
+    for dtype, u in (("float32", 0.0), ("bfloat16", 2.0 ** -8)):
+        tr, tref = [rk[f"train_{dtype}"] for rk in ranks], want[f"train_{dtype}"]
+        if any(t["shape"] != (1, 2, 1) for t in tr):
+            faults.append(f"mesh micro-step {dtype}: mesh shapes {[t['shape'] for t in tr]}, "
+                          f"want (1, 2, 1)")
+        # float32: tests/test_torch_mesh.py's rtol (the error metrics 10x);
+        # bf16: one rounding to bf16 (the error metrics 10x)
+        for key, w in tref["stats"].items():
+            rtol = (u or 1e-5) * (10 if key.endswith("_error") else 1)
+            for r, t in enumerate(tr):
+                if abs(t["stats"][key] - w) > rtol * abs(w) + 1e-6:
+                    faults.append(f"mesh micro-step {dtype} rank {r}: {key} {t['stats'][key]} "
+                                  f"against one process's {w} (rtol {rtol:.2e})")
+        for n in tref["grads"]:
+            if not torch.equal(tr[0]["grads"][n], tr[1]["grads"][n]):
+                faults.append(f"mesh micro-step {dtype}: the ranks' averaged gradient of {n} differ")
+        if u == 0.0:
+            # the float32 step: the split computes the one-process function
+            checked, noise, w_rel, w_cos, w_leaf = leaf_criterion(
+                tref["grads"], tr[0]["grads"], what="mesh micro-step float32 vs one process")
+            for n, w in tref["buffers"].items():
+                if not all(torch.allclose(t["buffers"][n], w, rtol=1e-5, atol=1e-6) for t in tr):
+                    faults.append(f"mesh micro-step float32: running statistic {n} differs "
+                                  f"from one process's")
+        else:
+            # bf16: cuDNN rounds the split UNet's rows otherwise, and the FB
+            # decisions and keypoints move with an ulp, so the step is another
+            # sample of bf16's noise about the float32 step: held by the
+            # criterion of that noise (`bf16_leaf_criterion`), the running
+            # statistics by rel-norm 0.05
+            names = [n for n in tref["grads"] if not n.endswith(structural_zero)]
+            checked, noise, w_rel, w_cos, w_leaf = bf16_leaf_criterion(
+                tr[0]["grads"], tref["grads"], names, what="mesh micro-step bf16 vs one process")
+            for n, w in tref["buffers"].items():
+                rel = max(float((t["buffers"][n] - w).norm()) for t in tr) / float(w.norm())
+                if rel >= 0.05:
+                    faults.append(f"mesh micro-step bf16: running statistic {n} rel-norm "
+                                  f"{rel:.3e} from one process's")
+        sfx = "" if u == 0.0 else "-bf16"
+        want_t = {"K1": 0, "K1-bf16": 0, "K2": 0, "K2-bf16": 0, "K1 bwd": 0, "K1 bwd-bf16": 0}
+        want_t.update({"K1" + sfx: k1_per, "K1 bwd" + sfx: k1_per, "K2" + sfx: 3})
+        for r, t in enumerate(tr):
+            got = {k: t["counts"][k] for k in want_t}
+            if got != want_t:
+                faults.append(f"mesh micro-step {dtype} rank {r}: launched {got}, want {want_t}")
+        log(f"mesh micro-step (nuScenes preset in {dtype}, F=2, B=1, T=11: rows 6/5, random "
+            f"draw): loss {tr[0]['stats']['loss']:.6f} / {tr[1]['stats']['loss']:.6f} against "
+            f"{tref['stats']['loss']:.6f}; gradient: {checked} leaves checked, {noise} below the "
+            f"noise floor, worst {w_leaf} rel-norm {w_rel:.3e} cosine {w_cos:.8f}; launches per "
+            f"rank {[t['counts'] for t in tr]}")
+
+    pr, pref = [rk["predict"] for rk in ranks], want["predict"]
+    for r, p in enumerate(pr):
+        labels, floats = serve_diff(p["out"], pref["out"])
+        if labels or floats > 1e-4:
+            faults.append(f"mesh predict rank {r}: labels differ {labels}, floats {floats:.3e}")
+        if "single-device" not in p["export"]:
+            faults.append(f"mesh predict rank {r}: export under the mesh gave {p['export']!r}")
+        if (p["counts"]["K1"], p["counts"]["K2"]) != (k1_per, 3):
+            faults.append(f"mesh predict rank {r}: launched {p['counts']}, want K1 {k1_per}, K2 3")
+    log(f"mesh predict (S=2, default float32, one raw scan): both ranks' outputs equal one "
+        f"process's (labels equal, floats within 1e-4), export refused; launches per rank "
+        f"{[p['counts'] for p in pr]}")
+
+    if faults:
+        fail("mesh phase:\n" + "\n".join(faults))
+
+    def med(xs):
+        return statistics.median(xs)
+
+    ms = {}
+    for name in ("frame", "spatial", "train_float32", "train_bfloat16", "predict"):
+        ms[f"mesh_{name}_world1_ms"] = med(want[name]["ms"])
+        for r in range(2):
+            ms[f"mesh_{name}_rank{r}_ms"] = med(ranks[r][name]["ms"])
+    log("mesh times (medians of 5; forwards and micro-steps on CUDA events, predicts on the "
+        "host clock; two processes sharing one card over gloo: not a measure of multi-card "
+        "scaling): " + ", ".join(
+            f"{name} world 1 {ms[f'mesh_{name}_world1_ms']:.3f} ms, ranks "
+            f"{ms[f'mesh_{name}_rank0_ms']:.3f} / {ms[f'mesh_{name}_rank1_ms']:.3f} ms"
+            for name in ("frame", "spatial", "train_float32", "train_bfloat16", "predict"))
+        + f" on {smi} ({time.perf_counter() - t0:.1f} s)")
+    paths = ("frame", "spatial", "train_float32", "predict")
+    launches = {"seg_pool": [sum(rk[p]["counts"]["K1"] for p in paths) for rk in ranks],
+                "row_shift_blocks": [sum(rk[p]["counts"]["K2"] for p in paths) for rk in ranks],
+                "seg_pool_backward": [rk["train_float32"]["counts"]["K1 bwd"] for rk in ranks],
+                "seg_pool_bf16": [rk["train_bfloat16"]["counts"]["K1-bf16"] for rk in ranks],
+                "seg_pool_backward_bf16": [rk["train_bfloat16"]["counts"]["K1 bwd-bf16"]
+                                           for rk in ranks],
+                "row_shift_blocks_bf16": [rk["train_bfloat16"]["counts"]["K2-bf16"]
+                                          for rk in ranks]}
+    return {"launches": launches, "ms": ms}
+
+
 def main() -> None:
     args = sys.argv[1:]
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is False)")
+    if args[:1] == ["--mesh-rank"] and len(args) == 4:  # a process of `mesh_phase`
+        mesh_rank(int(args[1]), int(args[2]), args[3])
+        return
     if args not in ([], ["--only", "kernels"]):
         fail(f"usage: python3 chip_smoke.py [--only kernels], got {args}")
     only_kernels = bool(args)
-    if not torch.cuda.is_available():
-        fail("no CUDA device (torch.cuda.is_available() is False)")
     import pcaccumulation_tpu_torch as port
     from pcaccumulation_tpu_torch.config import load_config
     from pcaccumulation_tpu_torch.data.loader import collate
@@ -3232,6 +3575,9 @@ def main() -> None:
     ddp = ddp_world1_phase(port, nus_state, smi)
     torchrun_cli_phase(port)
 
+    # ---- 6f''. the frame and spatial axes: two processes on the one card ------
+    mesh = mesh_phase(port, model.state_dict(), scenes[0], nus_state, smi)
+
     # ---- 6g. serving: Predictor, predict_stream, export, the tracker ---------
     cfg_s = load_config("configs/nuscene.yaml", ["--train.ckpt_backend=pickle"])
     serve_ms = {"nuscenes_bf16": serving_phase(port, "nuscenes_bf16", cfg_s, nus_state, 8, smi,
@@ -3239,8 +3585,11 @@ def main() -> None:
                 "default_f32": serving_phase(port, "default_f32", load_config(),
                                              model.state_dict(), 8, smi, export=False,
                                              host_split=True)}
-    # both ICPs at 50 iterations, exported: K4 inside the graph
-    cfg_icp = load_config(None, ["--pose_estimation.icp=true", "--tpointnet.icp=true"])
+    # both ICPs, exported: K4 inside the graph; at 10 iterations each (the
+    # test path runs 50), which keeps the export's unrolled graph short
+    cfg_icp = load_config(None, ["--pose_estimation.icp=true", "--tpointnet.icp=true",
+                                 "--pose_estimation.icp_max_iter=10",
+                                 "--tpointnet.icp_max_iter=10"])
     serve_ms["default_f32_icp"] = serving_phase(port, "default_f32_icp", cfg_icp,
                                                 model.state_dict(), 3, smi, export=True)
 
@@ -3458,6 +3807,8 @@ def main() -> None:
     kernels["row_shift_blocks_backward_bf16"] = dict(
         bf16_rows["row_shift_blocks_backward_bf16"],
         launches=nus_train["counts"]["K2 bwd-bf16"])
+    for name, per_rank in mesh["launches"].items():
+        kernels[name]["mesh_launches"] = per_rank
     for kern in kernels.values():
         log(f"{kern['name']}: {kern['ms']:.4f} ms (bound {kern['bound_ms']:.4f} ms by "
             f"{kern['bound_by']}; plain {kern['plain_ms']:.4f} ms; library "
@@ -3476,6 +3827,7 @@ def main() -> None:
         + " " + " ".join(f"nuscenes_train_{k} {v:.3f}" for k, v in remat.items())
         + " " + " ".join(f"train_{k} {v:.3f}" for k, v in det_ms.items())
         + f" nuscenes_ddp_world1_ms {ddp['ddp_ms']:.3f} nuscenes_plain_ms {ddp['plain_ms']:.3f} "
+        + " ".join(f"{k} {v:.3f}" for k, v in mesh["ms"].items()) + " "
         + " ".join(f"prep_{c}_{p}_ms {r['total']:.3f}" for c, rows in host_prep.items()
                    for p, r in rows.items())
         + f" on {smi}")

@@ -7,8 +7,9 @@ and gradients that launch them, for the segment pool (kernels/segscan.py),
 the shear-warp row shift (kernels/row_shift.py) and the nearest neighbour
 of ICP and the Chamfer distance (kernels/chamfer.py). Entry points run on
 the card unless the caller asks for the CPU with `device="cpu"`; without a
-CUDA device they raise instead of falling back. Training runs in one
-process or data-parallel, one process per card (parallel/mesh.py).
+CUDA device they raise instead of falling back. Training and serving run
+in one process or on a (data, frame, spatial) mesh of processes, one card
+each (parallel/mesh.py).
 """
 
 from __future__ import annotations

@@ -104,25 +104,50 @@ def _running_world() -> int:
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
-def check_supported(cfg: dict, world_size: int | None = None) -> None:
+def check_supported(cfg: dict, world_size: int | None = None, mesh_axes: bool = True) -> None:
     """Raise NotImplementedError for a config value whose feature the port
-    does not have, instead of ignoring it. The port runs the data axis, one
-    process per card (`parallel/mesh.py`): `parallel.num_devices` must be
-    the number of processes (`world_size`, by default that of the running
-    process group, else 1) or 0 (all of them); `parallel.zero1` and
-    `train.ckpt_backend: pickle | orbax` (orbax: a torch.distributed.checkpoint
-    directory) are ported. The frame and spatial axes split one sequence
-    over several cards and are not; test mode runs on one process, as the
-    JAX CLI's Tester runs on one device."""
+    does not have, or a mesh geometry that does not fit the processes,
+    instead of ignoring it. The port runs one process per card on a
+    (data, frame, spatial) mesh (`parallel/mesh.py`) of `world_size`
+    processes (by default those of the running process group, else 1).
+
+    `parallel.num_devices` is the mesh's size: the world, or 0 (all of
+    them); 1 with `parallel.frame_devices` x `parallel.spatial_devices` =
+    F*S > 1 means a mesh of F*S, as in the JAX CLI. F*S must divide the
+    world, F be at most the T frames of a sequence, and S at most the
+    H / 2^(unet.depth-1) bands the UNet's pools allow. `mesh_axes`: whether
+    the caller lays its processes out as the config's mesh (the CLI, the
+    Trainer, a Predictor given a mesh); the Tester and a Predictor without
+    one run one process's forward whatever the saved F and S say, as the
+    JAX package's do outside a mesh. `parallel.zero1` and
+    `train.ckpt_backend: pickle | orbax` (orbax: a
+    torch.distributed.checkpoint directory) are ported; test mode runs on
+    one process, as the JAX CLI's Tester runs on one device."""
     world = _running_world() if world_size is None else world_size
     par = cfg.get("parallel", {})
     train = cfg.get("train", {})
-    refused = [f"parallel.{k}={par[k]!r} (the frame and spatial axes)"
-               for k in ("frame_devices", "spatial_devices") if par.get(k, 1) != 1]
-    if par.get("num_devices", 1) not in (0, world):
-        refused.append(f"parallel.num_devices={par['num_devices']!r} with {world} process(es): "
-                       "the port runs one process per card; launch that many with torchrun "
+    f, s = par.get("frame_devices", 1), par.get("spatial_devices", 1)
+    fs = f * s if mesh_axes else 1
+    n_dev = par.get("num_devices", 1)
+    size = fs if n_dev == 1 and fs > 1 else (world if n_dev == 0 else n_dev)
+    refused = []
+    if world % fs:
+        refused.append(f"parallel.frame_devices={f} x parallel.spatial_devices={s}: "
+                       f"parallel.num_devices (={world} processes; 0 = all local devices) "
+                       f"must be a multiple of frame_devices {f} x spatial_devices {s} = {fs}")
+    elif size != world:
+        refused.append(f"parallel.num_devices={n_dev!r} with {world} process(es): the port runs "
+                       "one process per card; launch that many with torchrun "
                        "--nproc_per_node, or set 0 (all)")
+    if mesh_axes and f > 1 and f > cfg["voxel_generator"]["n_sweeps"]:
+        refused.append(f"parallel.frame_devices={f}: more than the "
+                       f"{cfg['voxel_generator']['n_sweeps']} frames of a sequence")
+    if mesh_axes and s > 1:
+        h, unit = cfg["voxel_generator"]["grid_size"][1], 2 ** (cfg["unet"]["depth"] - 1)
+        if h % unit or s > h // unit:
+            refused.append(f"parallel.spatial_devices={s}: the band edges fall on multiples of "
+                           f"2^(unet.depth-1) = {unit} rows, and H = {h} rows make "
+                           f"{h // unit if h % unit == 0 else 'no'} such bands")
     if train.get("ckpt_backend", "pickle") not in ("pickle", "orbax"):
         refused.append(f"train.ckpt_backend={train['ckpt_backend']!r}")
     if world > 1 and cfg.get("misc", {}).get("mode") == "test":

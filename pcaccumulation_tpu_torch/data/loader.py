@@ -7,7 +7,10 @@ package's, so one seed gives both packages the same batches. In a run of
 several processes (`process_id`, `process_count`) every process shuffles
 with the same seed and takes the batches `process_id::process_count`,
 trimmed to one length on every process, as the JAX package's loader does:
-`len()` is per process. With
+`len()` is per process. On a (data, frame, spatial) mesh
+(`parallel/mesh.py`) the slice is that of the process's data coordinate
+(`process_id` = the coordinate, `process_count` = the data axis's size), so
+the processes of one sequence read the same samples. With
 `num_workers > 0` the next batches are prepared while the caller runs the
 current one, and batches still come in order:
 - `mode="thread"`: a pool of threads;

@@ -13,10 +13,19 @@ It runs on the card unless --misc.device=cpu is given. The run directory is
 snapshot/<misc.exp_name> under the working directory.
 
 Under torchrun each process takes one card (NCCL; gloo with
---misc.device=cpu) and trains on its slice of the data: <batch_size> is per
-process, the joined batch is world x batch_size (`parallel/mesh.py`).
-`parallel.num_devices` is the number of processes, or 0 (all). Rank 0
-writes the run directory's config, source snapshot and logs.
+--misc.device=cpu), and the processes form a (data, frame, spatial) mesh
+(`parallel/mesh.py`) of `parallel.frame_devices` x
+`parallel.spatial_devices` processes per sequence:
+
+    torchrun --nproc_per_node=N -m pcaccumulation_tpu_torch.main <config.yaml> <batch_size> <iter_size> \
+        --parallel.num_devices=N --parallel.frame_devices=F --parallel.spatial_devices=S
+
+Each data coordinate trains on its slice of the data: <batch_size> is per
+data coordinate, the joined batch is N / (F * S) x batch_size; the F * S
+processes of one sequence split its UNet over its frames and its BEV rows.
+`parallel.num_devices` is the number of processes, or 0 (all); 1 with
+F * S > 1 means F * S, as in the JAX CLI. Rank 0 writes the run
+directory's config, source snapshot and logs.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 
 
 def build_loaders(cfg: dict, rank: int = 0, world: int = 1) -> dict:
-    """The train and val loaders of the process `rank` of `world`."""
+    """The train and val loaders of the data coordinate `rank` of `world`."""
     loaders = {}
     for split in ("train", "val"):
         try:
@@ -97,8 +106,10 @@ def main(argv: list[str]) -> int:
 
         from pcaccumulation_tpu_torch.train.trainer import Trainer
 
-        trainer = Trainer(cfg, model, build_loaders(cfg, rank, world), save_dir=save_dir,
-                          device=device)
+        par = cfg["parallel"]
+        on = mesh.make_mesh(par.get("frame_devices", 1), par.get("spatial_devices", 1))
+        trainer = Trainer(cfg, model, build_loaders(cfg, on.coords[0], on.data),
+                          save_dir=save_dir, device=device, mesh=on)
         if mode == "train":
             trainer.train()
         else:

@@ -49,16 +49,30 @@ class Linear(nn.Linear):
 
 
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d that computes in `compute_dtype` where it is set."""
+    """nn.Conv2d that computes in `compute_dtype` where it is set.
+
+    Band mode (`halo`, a `parallel.mesh.halo_rows` exchange): x is one
+    band of an image's rows; the exchange adds the `padding[0]` rows above
+    and below it from the neighbouring bands (zeros at the image's edges),
+    and the convolution pads in W alone, so each band's output rows are
+    those of the whole image's convolution."""
 
     def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
 
-    def forward(self, x):
+    def forward(self, x, halo=None):
+        if halo is None:
+            conv = self._conv_forward
+        else:  # the UNet's 3x3 convolutions: zero padding, stride 1
+            x = halo(x, self.padding[0])
+            pad = (0, self.padding[1])
+
+            def conv(a, w, b):
+                return F.conv2d(a, w, b, self.stride, pad, self.dilation, self.groups)
         if self.compute_dtype is None:
-            return super().forward(x)
-        return _apply_cast(lambda a, w: self._conv_forward(a, w, None), self.compute_dtype, x,
+            return conv(x, self.weight, self.bias)
+        return _apply_cast(lambda a, w: conv(a, w, None), self.compute_dtype, x,
                            self.weight, self.bias)
 
 

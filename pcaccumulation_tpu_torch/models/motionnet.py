@@ -36,6 +36,16 @@ space-to-depth layout: the FB head whenever its level-0 s2d is active, the
 ego-feature head when its sparse form is too; flax's BatchNorm otherwise),
 and the parameters and their gradients stay float32.
 
+Under `parallel.mesh.model_parallel(mesh)` with a frame or spatial axis
+(one sequence split over several processes, as the JAX model's sharding
+constraints split it under GSPMD) only the UNet is split: every rank
+computes the pillar stats, the pillar encoder and the canvas of its data
+slice, runs the UNet on its contiguous block of the [B*T] rows and its
+band of H rows (halo exchanges before each 3x3 convolution), and one
+gather puts the UNet's output back together on every rank; the heads,
+the warp, the STPN and the reconstruction then run on every rank as in
+one process. Outside it the forward is that of one process.
+
 Each stage runs inside a `torch.profiler.record_function` range named
 `motionnet.<stage>` (the ICP ranges `motionnet.icp_ego` and
 `motionnet.icp_instance` sit inside the ego and reconstruction stages);
@@ -69,7 +79,14 @@ from pcaccumulation_tpu_torch.ops.bilinear import (
 )
 from pcaccumulation_tpu_torch.ops.cluster import cluster_moving_points
 from pcaccumulation_tpu_torch.ops.segment import compact_mask_indices, take_rows_unique
-from pcaccumulation_tpu_torch.parallel.mesh import global_sum
+from pcaccumulation_tpu_torch.parallel.mesh import (
+    active_split,
+    bands,
+    blocks,
+    gather_blocks,
+    global_sum,
+    halo_rows,
+)
 
 MIN_POINTS = 15
 
@@ -140,6 +157,22 @@ class MotionNet(nn.Module):
             icp_threshold=tp.get("icp_threshold", 0.25), icp_max_iter=tp.get("icp_max_iter", 50),
             icp_max_points=tp.get("icp_max_points", 1024), compute_dtype=cd)
 
+    def _unet(self, x: torch.Tensor) -> torch.Tensor:
+        """The UNet on x [B*T, H, W, C]; under `model_parallel` on this
+        rank's block of rows and band of H, joined back on every rank."""
+        m = active_split()
+        if m is None:
+            return self.unet(x)
+        n, h = x.shape[:2]
+        if n < m.frame:
+            raise ValueError(f"{n} rows of [B*T] do not split over {m.frame} frame ranks")
+        rows, band = blocks(n, m.frame), bands(h, self.unet.band_unit, m.spatial)
+        _, f, s = m.coords
+        r0, h0 = sum(rows[:f]), sum(band[:s])
+        halo = None if m.spatial_group is None else halo_rows(m.spatial_group)
+        y = self.unet(x[r0:r0 + rows[f], h0:h0 + band[s]], halo)
+        return gather_blocks(gather_blocks(y, 1, band, m.spatial_group), 0, rows, m.frame_group)
+
     def forward(self, batch: dict, mode: str = "val",
                 generator: torch.Generator | None = None,
                 inst_labels_override: torch.Tensor | None = None,
@@ -183,7 +216,7 @@ class MotionNet(nn.Module):
             results["fb_seg_gt"] = canvas[..., c + 1:c + 2]
         with record_function("motionnet.unet"):
             # [B*T, H, W, Cf] in the compute dtype
-            bev_feats = self.unet(canvas[..., :c].reshape(b * t, h, w, c))
+            bev_feats = self._unet(canvas[..., :c].reshape(b * t, h, w, c))
         cf = bev_feats.shape[-1]
 
         # ---- 3. FB segmentation ---------------------------------------------

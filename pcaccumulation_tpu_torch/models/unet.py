@@ -1,7 +1,13 @@
 """2D UNet on BEV maps (the port of the JAX package's `models/unet.py`,
 plain form: the space-to-depth level 0 is the same function and is not
 ported). Tensors inside are NCHW; the public UNet takes and returns NHWC.
-With a compute dtype every convolution runs in it (models/layers.py)."""
+With a compute dtype every convolution runs in it (models/layers.py).
+
+Band mode (`halo`, the spatial axis of `parallel/mesh.py`): the input is
+one band of the image's rows, its edges on multiples of 2^(depth-1) rows,
+so that every 2x2 pool and stride-2 upsample stays inside the band; each
+3x3 convolution takes its halo rows from the neighbouring bands (19 at
+depth 5), and the output is the whole UNet's output on the band's rows."""
 
 from __future__ import annotations
 
@@ -24,8 +30,8 @@ class DownConv(nn.Module):
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
         self.pooling = pooling
 
-    def forward(self, x):
-        before_pool = torch.relu(self.conv2(torch.relu(self.conv1(x))))
+    def forward(self, x, halo=None):
+        before_pool = torch.relu(self.conv2(torch.relu(self.conv1(x, halo)), halo))
         x = F.max_pool2d(before_pool, 2) if self.pooling else before_pool
         return x, before_pool
 
@@ -42,9 +48,9 @@ class UpConv(nn.Module):
                             compute_dtype=compute_dtype)
         self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
 
-    def forward(self, from_down, from_up):
+    def forward(self, from_down, from_up, halo=None):
         x = torch.cat([self.upconv(from_up), from_down], dim=1)
-        return torch.relu(self.conv2(torch.relu(self.conv1(x))))
+        return torch.relu(self.conv2(torch.relu(self.conv1(x, halo)), halo))
 
 
 def make_unet_convs(in_channels: int, down_widths: Sequence[int], up_widths: Sequence[int],
@@ -65,14 +71,16 @@ def make_unet_convs(in_channels: int, down_widths: Sequence[int], up_widths: Seq
     return down, up
 
 
-def run_unet(down: nn.ModuleList, up: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
-    """x [N, C, H, W] through the encoder/decoder levels."""
+def run_unet(down: nn.ModuleList, up: nn.ModuleList, x: torch.Tensor,
+             halo=None) -> torch.Tensor:
+    """x [N, C, H, W] through the encoder/decoder levels (a band of rows
+    with `halo`)."""
     encoder_outs = []
     for level in down:
-        x, before_pool = level(x)
+        x, before_pool = level(x, halo)
         encoder_outs.append(before_pool)
     for i, level in enumerate(up):
-        x = level(encoder_outs[-(i + 2)], x)
+        x = level(encoder_outs[-(i + 2)], x, halo)
     return x
 
 
@@ -80,23 +88,29 @@ class UNet(nn.Module):
     """Encoder/decoder with `depth` levels, start_filts doubling per level,
     and a final 3x3 conv back to in_channels. NHWC in and out. With a
     compute dtype the input is cast to it, and the output is cast back to
-    the input's dtype unless `keep_compute_dtype`."""
+    the input's dtype unless `keep_compute_dtype`. `band_unit`: the rows a
+    band's edges fall on multiples of in band mode, 2^(depth-1)."""
 
     def __init__(self, in_channels: int = 32, depth: int = 5, start_filts: int = 32,
                  compute_dtype: torch.dtype | None = None, keep_compute_dtype: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
         self.keep_compute_dtype = keep_compute_dtype
+        self.band_unit = 2 ** (depth - 1)
         down_widths = [start_filts * 2 ** i for i in range(depth)]
         self.down_convs, self.up_convs = make_unet_convs(
             in_channels, down_widths, down_widths[-2::-1], compute_dtype)
         self.conv_final = Conv2d(start_filts, in_channels, 3, padding=1,
                                  compute_dtype=compute_dtype)
 
-    def forward(self, x):
+    def forward(self, x, halo=None):
+        """x [N, H, W, C]; with `halo` a band of rows of height a multiple
+        of `band_unit` (see the module docstring)."""
         in_dtype = x.dtype
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        x = run_unet(self.down_convs, self.up_convs, x.permute(0, 3, 1, 2))
-        out = self.conv_final(x).permute(0, 2, 3, 1)
+        if halo is not None and x.shape[1] % self.band_unit:
+            raise ValueError(f"a band of {x.shape[1]} rows is no multiple of {self.band_unit}")
+        x = run_unet(self.down_convs, self.up_convs, x.permute(0, 3, 1, 2), halo)
+        out = self.conv_final(x, halo).permute(0, 2, 3, 1)
         return out if self.keep_compute_dtype else out.to(in_dtype)

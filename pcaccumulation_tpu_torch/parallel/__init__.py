@@ -1,1 +1,1 @@
-"""Data parallelism over processes, one card each (`mesh.py`)."""
+"""The process mesh: the data, frame and spatial axes over processes, one card each (`mesh.py`)."""

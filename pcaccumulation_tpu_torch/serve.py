@@ -18,8 +18,13 @@ the crop and the ground filter. The checkpoint may be in any form
 
 The step runs on the card unless the caller passes `device="cpu"`. The
 JAX package keeps one jitted step per config (`_STEP_CACHE`); PyTorch
-compiles nothing, so the port has no such cache. Mesh serving is not
-ported: `check_supported` refuses a config that asks for a mesh.
+compiles nothing, so the port has no such cache.
+
+Latency-sharded serving (`Predictor(cfg, mesh=parallel.mesh.make_mesh(F,
+S))`, on every process of the mesh with the same scans): the sequence's
+UNet is split over the mesh's frame and spatial axes as in training, and
+every process returns the same outputs, those of one process. `export`
+stays a one-process artifact.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from pcaccumulation_tpu_torch import build_model, resolve_device
 from pcaccumulation_tpu_torch.config import check_supported
 from pcaccumulation_tpu_torch.data.dataset import prep_sample
 from pcaccumulation_tpu_torch.data.loader import collate
+from pcaccumulation_tpu_torch.parallel import mesh as pmesh
 from pcaccumulation_tpu_torch.utils.checkpoint import partial_load, read_checkpoint
 
 # bump when the artifact's contents change (its inputs, outputs or files)
@@ -87,11 +93,28 @@ class Predictor:
     drawn once, on the device, from a generator seeded with `rng_seed`, and
     fed to every call: the same scan gives the same output, call after
     call (with `pose_estimation.deterministic_sampling` nothing is drawn).
+
+    `mesh` (`parallel.mesh.make_mesh`, made by every process of the group):
+    latency-sharded serving, the UNet split over its frame and spatial
+    axes, which must be the config's `parallel.frame_devices` and
+    `parallel.spatial_devices`; each process predicts the same scans. A
+    data axis serves the same sequence on each of its coordinates. Without
+    a mesh a config saved by a run on one predicts in one process.
     """
 
     def __init__(self, cfg: dict, state_dict: dict | None = None,
-                 ckpt_path: str | None = None, rng_seed: int = 0, device=None):
-        check_supported(cfg)
+                 ckpt_path: str | None = None, rng_seed: int = 0, device=None, mesh=None):
+        if mesh is None:
+            check_supported(cfg, mesh_axes=False)
+        else:
+            check_supported(cfg, pmesh.world(mesh.world_group))
+            par = cfg.get("parallel", {})
+            want = (par.get("frame_devices", 1), par.get("spatial_devices", 1))
+            if (mesh.frame, mesh.spatial) != want:
+                raise ValueError(f"a mesh of frame {mesh.frame} x spatial {mesh.spatial} for "
+                                 f"parallel.frame_devices={want[0]} x "
+                                 f"parallel.spatial_devices={want[1]}")
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_frames = cfg["voxel_generator"]["n_sweeps"]
@@ -187,7 +210,8 @@ class Predictor:
 
     def _run_step(self, dbatch: dict) -> dict:
         args = (dbatch,) if self._scores is None else (dbatch, self._scores)
-        return self._step(*args)
+        with pmesh.model_parallel(self.mesh):
+            return self._step(*args)
 
     def _invoke(self, dbatch: dict):
         """Launch the step and the copy of its outputs to the host; returns
@@ -319,8 +343,14 @@ class Predictor:
         `pose_estimation.icp` or `tpointnet.icp` on, the graph holds the
         ICP loops unrolled, K4 (`torch.ops.pcacc.nn_packed`) called once
         per iteration: its grid comes from the shapes, so no count is read
-        to the host.
+        to the host. Under a mesh it raises NotImplementedError, as the JAX
+        package's does.
         """
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "export targets single-device deployment artifacts; build the Predictor "
+                "without a mesh to export, and pass mesh= at serve time for latency-sharded "
+                "serving")
         dbatch = self._to_device(self._prep(*self._dummy_scan()))
         args = (dbatch,) if self._scores is None else (dbatch, self._scores)
         with torch.no_grad():

@@ -43,10 +43,11 @@ class Tester:
     The dumps go to results_dir (default results/<misc.exp_name> under the
     working directory), the logs to save_dir. `misc.pretrain` names a
     checkpoint to load, in any form `utils.checkpoint.read_checkpoint`
-    reads."""
+    reads. A config saved by a run on a frame or spatial mesh runs one
+    process's forward, as the JAX package's Tester runs outside a mesh."""
 
     def __init__(self, cfg, model, save_dir=None, device=None, results_dir=None):
-        check_supported(cfg)
+        check_supported(cfg, mesh_axes=False)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()

@@ -1,6 +1,6 @@
 """Training and evaluation runtime (the port of the JAX package's
-`train/trainer.py`): one process, or one process per card of a
-data-parallel run (`parallel/mesh.py`).
+`train/trainer.py`): one process, or one process per card of a run on a
+(data, frame, spatial) mesh (`parallel/mesh.py`).
 
 `Optimizer` writes out by hand what the JAX package builds from optax
 (`make_optimizer`), where torch's own optimizers and clipping differ:
@@ -35,17 +35,22 @@ The steps run under `torch.use_deterministic_algorithms` (set on entry,
 restored on exit): two steps on the same batch and weights give the same
 bits on the card, as the JAX package's step does on its TPU.
 
-Data parallel (a process group from `parallel.mesh.init_distributed`):
-`train.batch_size` is per process and each step computes one process's
-function on the joined batch. The forward and FuseLoss reduce over the
-ranks inside `mesh.data_parallel` (BatchNorm statistics, loss sums and
-counts, gates, Lovász's rows), each rank draws the joined batch's keypoint
-scores and keeps its rows, and every micro-step's gradients are averaged
-over the ranks in one all-reduce, so `Optimizer.update` sees the joined
-gradient on every rank. With `parallel.zero1` each rank keeps Adam's
-moments and the accumulators of the parameters it owns (a partition of
-the parameters balanced by size), updates those, and broadcasts them; the
-clip's global norm and the skip flag come from every parameter. Logs, the
+Several processes (a process group from `parallel.mesh.init_distributed`)
+are laid out as the config's (data, frame, spatial) mesh
+(`parallel.mesh.make_mesh`): `train.batch_size` is per data coordinate
+and each step computes one process's function on the joined batch. The
+forward and FuseLoss reduce over the data axis inside
+`pmesh.data_parallel` (BatchNorm statistics, loss sums and counts, gates,
+Lovász's rows), MotionNet splits its UNet over the frame and spatial axes
+inside `pmesh.model_parallel`, each rank draws the joined batch's
+keypoint scores and keeps its data slice's rows, and every micro-step's
+gradients are averaged over all ranks in one all-reduce, so
+`Optimizer.update` sees the joined gradient on every rank. With
+`parallel.zero1` each rank keeps Adam's moments and the accumulators of
+the parameters it owns among the ranks of its data axis (a partition of
+the parameters balanced by size, as the JAX package's `zero1_specs`
+shards over `data`), updates those, and broadcasts them; the clip's
+global norm and the skip flag come from every parameter. Logs, the
 architecture dump and pickle checkpoints are written by rank 0; an orbax
 (torch.distributed.checkpoint) checkpoint by every rank.
 """
@@ -63,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pcaccumulation_tpu_torch import resolve_device, to_device
 from pcaccumulation_tpu_torch.config import check_supported
-from pcaccumulation_tpu_torch.parallel import mesh
+from pcaccumulation_tpu_torch.parallel import mesh as pmesh
 from pcaccumulation_tpu_torch.train.loss import fuse_loss
 from pcaccumulation_tpu_torch.train.metrics import (
     compute_mean_iou_recall_precision,
@@ -113,7 +118,7 @@ class Optimizer:
         self.max_norm = cfg["train"]["grad_clip"]
         self.iter_size = cfg["train"]["iter_size"]
         self.group = group if zero1 else None  # the ZeRO-1 group
-        self.rank, self.world = mesh.rank(self.group), mesh.world(self.group)
+        self.rank, self.world = pmesh.rank(self.group), pmesh.world(self.group)
         self.owner = partition_by_size([p.numel() for p in self.params], self.world)
         self.owned = [i for i, r in enumerate(self.owner) if r == self.rank]
 
@@ -314,14 +319,18 @@ def stats_to_host(stats: dict) -> dict:
 
 class Trainer:
     """cfg: the derived config; model: a MotionNet; loaders: {"train",
-    "val"} iterables of collated numpy batches (this process's slice);
-    device: None = CUDA. In a process group (`parallel.mesh`) the Trainer
-    is one rank of a data-parallel run (see the module docstring)."""
+    "val"} iterables of collated numpy batches (this process's data
+    slice); device: None = CUDA. In a process group (`parallel.mesh`) the
+    Trainer is one rank of a run on `mesh` (None: the config's mesh, made
+    here by every rank; see the module docstring)."""
 
-    def __init__(self, cfg, model, loaders, save_dir=None, device=None):
-        self.group = mesh.default_group()
-        self.rank, self.world = mesh.rank(self.group), mesh.world(self.group)
+    def __init__(self, cfg, model, loaders, save_dir=None, device=None, mesh=None):
+        self.group = pmesh.default_group()
+        self.rank, self.world = pmesh.rank(self.group), pmesh.world(self.group)
         check_supported(cfg, self.world)
+        par = cfg.get("parallel", {})
+        self.mesh = mesh if mesh is not None else pmesh.make_mesh(
+            par.get("frame_devices", 1), par.get("spatial_devices", 1))
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -345,8 +354,8 @@ class Trainer:
             updates_per_epoch = 1
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.params = [p for _, p in named]
-        self.optimizer = Optimizer(self.params, cfg, updates_per_epoch, group=self.group,
-                                   zero1=cfg.get("parallel", {}).get("zero1", False),
+        self.optimizer = Optimizer(self.params, cfg, updates_per_epoch,
+                                   group=self.mesh.data_group, zero1=par.get("zero1", False),
                                    names=[n for n, _ in named])
         n_params = sum(p.numel() for p in self.params)
         self.logger.write(f"#parameters {n_params / 1e6} M\n")
@@ -382,15 +391,24 @@ class Trainer:
     # ------------------------------------------------------------------ steps
     def kpt_scores(self, batch: dict, generator: torch.Generator | None):
         """The random keypoint draw's uniform scores of this rank's rows: the
-        joined batch's [world * B, T, M] drawn from the step's generator (the
-        same on every rank), this rank's B rows kept, so that the draw is the
-        one process's draw. None under deterministic sampling."""
+        joined batch's [data * B, T, M] drawn from the step's generator (the
+        same on every rank), this rank's data slice's B rows kept, so that
+        the draw is the one process's draw. None under deterministic
+        sampling."""
         if self.cfg["pose_estimation"].get("deterministic_sampling", False):
             return None
         b, m = batch["pillar_valid"].shape
-        scores = torch.rand((self.world * b, self.cfg["voxel_generator"]["n_sweeps"], m),
+        d = self.mesh.coords[0]
+        scores = torch.rand((self.mesh.data * b, self.cfg["voxel_generator"]["n_sweeps"], m),
                             generator=generator, device=self.device)
-        return scores[self.rank * b:(self.rank + 1) * b]
+        return scores[d * b:(d + 1) * b]
+
+    @contextlib.contextmanager
+    def _on_mesh(self):
+        """The step's reductions over the data axis and the UNet's split
+        over the frame and spatial axes."""
+        with pmesh.data_parallel(self.mesh.data_group), pmesh.model_parallel(self.mesh):
+            yield
 
     def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """One micro-step: forward in train mode (batch statistics, running
@@ -408,7 +426,7 @@ class Trainer:
             return fuse_loss(results, batch, self.cfg["loss"],
                              self.cfg["capacity"]["max_instances"])
 
-        with deterministic_algorithms(), mesh.data_parallel(self.group):
+        with deterministic_algorithms(), self._on_mesh():
             # drawn outside the remat's recompute, which restores only the
             # default generators
             scores = self.kpt_scores(batch, generator)
@@ -423,7 +441,7 @@ class Trainer:
             stats["loss"].backward()
             grads = [p.grad for p in self.params]
             if self.group is not None:
-                grads = mesh.mean_over_ranks(
+                grads = pmesh.mean_over_ranks(
                     [g if g is not None else torch.zeros_like(p)
                      for g, p in zip(grads, self.params)], self.group)
             self.optimizer.update(grads)
@@ -432,7 +450,7 @@ class Trainer:
     @torch.no_grad()
     def val_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         self.model.eval()
-        with deterministic_algorithms(), mesh.data_parallel(self.group):
+        with deterministic_algorithms(), self._on_mesh():
             results = self.model(batch, mode="val", kpt_scores=self.kpt_scores(batch, generator))
             return fuse_loss(results, batch, self.cfg["loss"],
                              self.cfg["capacity"]["max_instances"])
