@@ -16,11 +16,14 @@ bit-identical, timed through the wrapper and through the C entry point;
 K2 row_shift_blocks at T=5, at T=11 and at C=9, K3
 row_shift through warp_bev / warp_bev_batch, K4 nn at the ICP shapes with
 and without a query mask and with references packed once, and the Chamfer
-distance on K4; the bf16 kernels of K1 at the tile edges and at
-[120000, 32] and of K2 at [288, 288, 352] nb=11 and at C=9, K3 in bf16
-once; the bf16 gradients of K1 at the tile edges and at [480000, 32] and
-of K2 at [288, 288, 352] nb=11), then drives the paths of the port at the
-full default
+distance on K4; the bf16 kernels of K1 at the tile edges, on rows 2 and
+8 bytes off a 16-byte boundary and at [120000, 32] and [480000, 32] and of
+K2 at [288, 288, 352] nb=11 and at C=9, K3 in bf16 once; the bf16
+gradients of K1 at the tile edges, with a misaligned cotangent and at
+[480000, 32] and of K2 at [288, 288, 352] nb=11; K1's bf16 kernels launch
+by launch, both designs (`k1_bf16_split`), their resident blocks per SM
+(`k1_bf16_kernel_info`) and the host's us per wrapper call), then drives
+the paths of the port at the full default
 config (configs/default.yaml: T=5, 288x288 BEV, 90k points, 30k pillars,
 float32) with seeded random weights on synthetic scenes, the FB and MOS
 heads' biases set to scene 0's label shares (`calibrate_heads`), so that
@@ -500,6 +503,90 @@ def k1_bf16_check(what: str, x: torch.Tensor, ids: torch.Tensor) -> tuple[float,
     return float((y.float() - want_y.float()).abs().max()), float(err_s.max())
 
 
+def misaligned(t: torch.Tensor, elems: int) -> torch.Tensor:
+    """A contiguous copy of t whose data starts `elems` elements past an
+    aligned allocation (bf16: 1 = 2 bytes, 4 = 8 bytes off a 16-byte
+    boundary)."""
+    buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    out = buf[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+K1_BF16_KERNELS = ("forward_first", "forward_second", "gradient_first", "gradient_second")
+K1_BF16_INFO = ("blocks_per_sm", "registers", "spill_bytes", "shared_bytes", "threads")
+
+
+def k1_bf16_kernel_info() -> dict:
+    """{design: {kernel: resident blocks per SM, registers, spill bytes,
+    shared bytes, threads}} of K1's bf16 kernels at C = 32, from the CUDA
+    runtime (`segpool_bf16_kernel_info`): design 0 the two-launch
+    seg_partials + seg_tiles (kept for C != 32 and misaligned rows), 1 the
+    Hopper path (bf_local + bf_fix)."""
+    import ctypes
+
+    from pcaccumulation_tpu_torch.kernels import build
+
+    lib = build.load_library("segscan")
+    info = {}
+    for design in (0, 1):
+        buf = (ctypes.c_int * 20)()
+        if lib.segpool_bf16_kernel_info(design, ctypes.addressof(buf), 20) != 4:
+            fail(f"segpool_bf16_kernel_info refused design {design}")
+        info[design] = {name: dict(zip(K1_BF16_INFO, buf[5 * i: 5 * i + 5]))
+                        for i, name in enumerate(K1_BF16_KERNELS)}
+    return info
+
+
+def k1_bf16_split(x: torch.Tensor, ids: torch.Tensor, y=None, g=None) -> dict:
+    """Each launch of both bf16 designs of K1 alone and the two together on
+    one input (the forward's max, or with y and g the gradient of max),
+    queued behind a spin (`cuda_ms_queued`; the second launch alone reads
+    the scratch a whole call left): {"d<design>_<first|second|both>_ms"}."""
+    from pcaccumulation_tpu_torch.kernels import build
+    from pcaccumulation_tpu_torch.kernels.segscan import scratch_floats
+
+    lib = build.load_library("segscan")
+    n, c = x.shape
+    op = 0 if y is None else 2
+    res = torch.empty_like(x)
+    scratch = torch.empty(scratch_floats(n, c, x.dtype, 1 if y is None else 2), device=x.device)
+    ptrs = (x.data_ptr(), 0 if y is None else y.data_ptr(), 0 if g is None else g.data_ptr(),
+            ids.data_ptr(), res.data_ptr(), scratch.data_ptr(), scratch.numel(), n, c,
+            build.stream(x))
+    row = {}
+    for design in (0, 1):
+        if lib.segpool_bf16_phase(design, op, 3, *ptrs) != 0:
+            fail(f"segpool_bf16_phase refused design {design} at {[n, c]}")
+        for phase, key in ((1, "first"), (2, "second"), (3, "both")):
+            row[f"d{design}_{key}_ms"] = cuda_ms_queued(
+                lambda: lib.segpool_bf16_phase(design, op, phase, *ptrs), iters=100)
+    return row
+
+
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """The host's us per call of fn over `calls` calls with no synchronise
+    between them (the enqueue; the card may still be running)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def log_k1_bf16_split(what: str, split: dict, bound: float, host_us: float) -> None:
+    log(f"K1 bf16 {what} per launch (queued): two-launch design first "
+        f"{split['d0_first_ms']:.4f} + second {split['d0_second_ms']:.4f} -> both "
+        f"{split['d0_both_ms']:.4f} ms; Hopper design bf_local {split['d1_first_ms']:.4f} + "
+        f"bf_fix {split['d1_second_ms']:.4f} -> both {split['d1_both_ms']:.4f} ms "
+        f"({bound / split['d1_both_ms']:.3f} of the {bound:.4f} ms bound); the host "
+        f"{host_us:.1f} us per wrapper call")
+
+
 def k2_bf16_check(what: str, img: torch.Tensor, shifts: torch.Tensor, nb: int,
                   counted) -> tuple[torch.Tensor, float]:
     """The bf16 row shift (`row_shift_blocks`, or `row_shift` at nb=1)
@@ -526,9 +613,11 @@ def k2_bf16_check(what: str, img: torch.Tensor, shifts: torch.Tensor, nb: int,
 
 def bf16_kernel_phase(dev, gen) -> dict:
     """The bf16 kernels of K1 and K2 against their plain versions: K1 at
-    PR 6's tile edges (C=32, and C=9 on the small cases) and at the
-    nuScenes pillar encoder's shape [120000, 32]; K2 at the nuScenes warp's
-    [288, 288, 352] nb=11 and at C=9 (the one-channel path), K3 (K2's kernel
+    its tile edges (`K1_EDGES` at C=32, and C=9 on the small cases), on
+    rows 2 and 8 bytes off a 16-byte boundary (the two-launch kernels), and
+    at the nuScenes pillar encoder's shapes [120000, 32] and [480000, 32]
+    (B=4), with K1's per-launch split and resident blocks per SM; K2 at the
+    nuScenes warp's [288, 288, 352] nb=11 and at C=9 (the one-channel path), K3 (K2's kernel
     at one shift per row) at [1152, 288, 32] once. Timings at the nuScenes
     shapes against the bounds and, for K2, `F.grid_sample` on the same bf16
     canvas. Returns the two rows of the `kernels` line (launches None until
@@ -539,7 +628,7 @@ def bf16_kernel_phase(dev, gen) -> dict:
         row_shift_blocks,
         row_shift_blocks_plain,
     )
-    from pcaccumulation_tpu_torch.kernels.segscan import TILE_ROWS, seg_pool, seg_pool_plain
+    from pcaccumulation_tpu_torch.kernels.segscan import scratch_floats, seg_pool, seg_pool_plain
 
     bf = torch.bfloat16
     rng = np.random.default_rng(SEED + 7)
@@ -550,11 +639,23 @@ def bf16_kernel_phase(dev, gen) -> dict:
         errs = k1_bf16_check(f"{name}, C={c}", torch.from_numpy(x).to(dev).to(bf),
                              torch.from_numpy(ids).to(dev))
         worst = [max(a, b) for a, b in zip(worst, errs)]
+    # rows 2 and 8 bytes off a 16-byte boundary: the one-column and the
+    # 4-column two-launch kernels
+    for name, elems in (("tail_90000", 1), ("tail_90000", 4), ("on_tile_edges", 4)):
+        x, ids, _ = k1_edge_case(name, 32, rng)
+        errs = k1_bf16_check(f"{name}, C=32, {2 * elems} bytes off", misaligned(
+            torch.from_numpy(x).to(dev).to(bf), elems), torch.from_numpy(ids).to(dev))
+        worst = [max(a, b) for a, b in zip(worst, errs)]
     x, ids = k1_inputs(gen, dev, n=120000)
     xb = x.to(bf)
     k1_err = k1_bf16_check("[120000, 32]", xb, ids)
-    log(f"K1 bf16 at the tile edges ({len(cases)} cases) and at [120000, 32]: max torch.equal "
-        f"to the plain version; sum max abs err {max(worst[1], k1_err[1]):.2e} (tol 1 bf16 ulp "
+    # the B=4 micro-step's forward shape, from its own seed
+    x4f, ids4f = k1_batch_inputs(torch.Generator().manual_seed(SEED + 9), dev, 4, n=120000)
+    x4f = x4f.to(bf)
+    k1_err4 = k1_bf16_check("[480000, 32]", x4f, ids4f)
+    log(f"K1 bf16 at the tile edges ({len(cases)} cases), on rows 2 and 8 bytes off a 16-byte "
+        f"boundary (3 cases) and at [120000, 32] and [480000, 32]: max torch.equal to the plain "
+        f"version; sum max abs err {max(worst[1], k1_err[1], k1_err4[1]):.2e} (tol 1 bf16 ulp "
         f"+ 1e-5 of the segment's sum|x|); two calls equal")
 
     # K2 at the nuScenes warp's shape and at C = 9; K3 at [1152, 288, 32]
@@ -577,14 +678,17 @@ def bf16_kernel_phase(dev, gen) -> dict:
     lib = build.load_library("segscan")
     stream = build.stream(xb)
     n, c = xb.shape
-    out = torch.empty_like(xb)
-    scratch = torch.empty(-(-n // TILE_ROWS) * (2 * c + 1), device=dev)
 
-    def entry_fwd():
-        lib.segpool_forward_bf16(xb.data_ptr(), ids.data_ptr(), out.data_ptr(),
-                                 scratch.data_ptr(), scratch.numel(), n, c, 0, stream)
+    def entry(xe, ide):
+        out = torch.empty_like(xe)
+        scratch = torch.empty(scratch_floats(xe.shape[0], c, bf, 1), device=dev)
+        return lambda: lib.segpool_forward_bf16(xe.data_ptr(), ide.data_ptr(), out.data_ptr(),
+                                                scratch.data_ptr(), scratch.numel(),
+                                                xe.shape[0], c, 0, stream)
 
+    entry_fwd, entry_fwd4 = entry(xb, ids), entry(x4f, ids4f)
     k1_bound, k1_by = bound_ms(2 * n * c * 2 + n * 4, n * c)
+    k1_bound4 = bound_ms(2 * x4f.numel() * 2 + x4f.shape[0] * 4, x4f.numel())[0]
     r, w, ctot = img_n.shape
     k = torch.floor(shifts_n)
     ki, fr = k.clamp(-w, w).to(torch.int32), (shifts_n - k).float()
@@ -609,6 +713,9 @@ def bf16_kernel_phase(dev, gen) -> dict:
             "bound_ms": k1_bound, "bound_by": k1_by,
             "library_ms": None,  # no single PyTorch call reduces and broadcasts back
             "entry_ms": cuda_ms_queued(entry_fwd, iters=200),
+            # the B=4 micro-step's forward: the C entry point and its bound
+            "entry_ms_480000": cuda_ms_queued(entry_fwd4, iters=200),
+            "bound_ms_480000": k1_bound4,
         },
         "row_shift_blocks_bf16": {
             "name": "row_shift_blocks_bf16", "route": "cuda",
@@ -631,6 +738,21 @@ def bf16_kernel_phase(dev, gen) -> dict:
             f"{f32_ms[key[:-5]]:.4f} ms); bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
             f"plain {row['plain_ms']:.4f} ms; library {row['library_ms']}"
             + (f"; C entry queued {row['entry_ms']:.4f} ms" if "entry_ms" in row else ""))
+    r = rows["seg_pool_bf16"]
+    log(f"seg_pool_bf16 at [480000, 32]: C entry queued {r['entry_ms_480000']:.4f} ms, bound "
+        f"{k1_bound4:.4f} ms, {k1_bound4 / r['entry_ms_480000']:.3f} of it; at [120000, 32] "
+        f"{k1_bound / r['entry_ms']:.3f} of its bound")
+    # the per-launch split of both bf16 designs, and their kernels' residency
+    for design, kern in k1_bf16_kernel_info().items():
+        log(f"K1 bf16 kernels, design {design} ("
+            f"{'seg_partials + seg_tiles' if design == 0 else 'bf_local + bf_fix'}), C=32: "
+            + "; ".join(f"{name} {k['blocks_per_sm']} blocks/SM of {k['threads']} threads, "
+                        f"{k['registers']} registers, {k['spill_bytes']} spill bytes, "
+                        f"{k['shared_bytes']} shared bytes" for name, k in kern.items()))
+    for what, (xs, ids_s, bound) in (("forward [120000, 32]", (xb, ids, k1_bound)),
+                                     ("forward [480000, 32]", (x4f, ids4f, k1_bound4))):
+        log_k1_bf16_split(what, k1_bf16_split(xs, ids_s), bound,
+                          host_us_per_call(lambda: seg_pool(xs, ids_s, "max")))
     del want_n
     return rows
 
@@ -698,7 +820,7 @@ def bf16_grad_phase(dev, gen) -> dict:
         row_shift_blocks_plain,
     )
     from pcaccumulation_tpu_torch.kernels.segscan import (
-        TILE_ROWS,
+        scratch_floats,
         seg_pool_backward,
         seg_pool_backward_plain,
         seg_pool_plain,
@@ -712,13 +834,20 @@ def bf16_grad_phase(dev, gen) -> dict:
         x, ids, g = (torch.from_numpy(a).to(dev) for a in k1_edge_case(name, c, rng))
         err, off = k1_bf16_grad_check(f"{name}, C={c}", x.to(bf), ids, g.to(bf))
         worst, n_off = max(worst, err), n_off + off
+    # a cotangent 2 or 8 bytes off a 16-byte boundary: the two-launch kernels
+    for name, elems in (("tail_90000", 1), ("tail_90000", 4), ("on_tile_edges", 4)):
+        x, ids, g = (torch.from_numpy(a).to(dev) for a in k1_edge_case(name, 32, rng))
+        err, off = k1_bf16_grad_check(f"{name}, C=32, g {2 * elems} bytes off", x.to(bf), ids,
+                                      misaligned(g.to(bf), elems))
+        worst, n_off = max(worst, err), n_off + off
     x4, ids4 = k1_batch_inputs(gen, dev, 4, n=120000)
     x4 = tie_values(x4).to(bf)
     g4 = torch.randn(x4.shape, generator=gen).to(dev).to(bf)
     k1_err, off4 = k1_bf16_grad_check("[480000, 32]", x4, ids4, g4)
     y4 = seg_pool_plain(x4, ids4, "max")
     n_tied = int((x4 == y4).sum())
-    log(f"K1 bf16 gradient at the tile edges ({len(cases)} cases) and at [480000, 32] ({n_tied} "
+    log(f"K1 bf16 gradient at the tile edges ({len(cases)} cases), with a cotangent 2 and 8 "
+        f"bytes off a 16-byte boundary (3 cases) and at [480000, 32] ({n_tied} "
         f"tied values of 480000 x 32): max abs err {max(worst, k1_err):.2e} against the plain "
         f"version (tol 1 bf16 ulp of the share + 1e-5 of sum|g| / ties); rows not bit-equal: "
         f"{n_off} over the edge cases, {off4} of 480000 at [480000, 32]; zero off the tie set; "
@@ -728,7 +857,7 @@ def bf16_grad_phase(dev, gen) -> dict:
     stream = build.stream(x4)
     n, c = x4.shape
     out = torch.empty_like(x4)
-    scratch = torch.empty(-(-n // TILE_ROWS) * (4 * c + 1), device=dev)
+    scratch = torch.empty(scratch_floats(n, c, bf, 2), device=dev)
 
     def entry_bwd():
         lib.segpool_backward_max_bf16(x4.data_ptr(), y4.data_ptr(), g4.data_ptr(),
@@ -798,6 +927,8 @@ def bf16_grad_phase(dev, gen) -> dict:
             f"({row['bound_by']}); plain {row['plain_ms']:.4f} ms; library {row['library_ms']}"
             + (f"; C entry queued {row['entry_ms']:.4f} ms, {row['bound_ms'] / row['entry_ms']:.3f}"
                f" of the bound" if "entry_ms" in row else ""))
+    log_k1_bf16_split("gradient [480000, 32]", k1_bf16_split(x4, ids4, y4, g4), k1_bound,
+                      host_us_per_call(lambda: seg_pool_backward(x4, ids4, y4, g4)))
     return rows
 
 

@@ -2,7 +2,11 @@
 // gradient of its max, each as one C entry point of two launches. The
 // forward takes float32 (`segpool_forward`) or bfloat16
 // (`segpool_forward_bf16`) rows, and so does the gradient
-// (`segpool_backward_max`, `segpool_backward_max_bf16`).
+// (`segpool_backward_max`, `segpool_backward_max_bf16`). The design below
+// (seg_partials + seg_tiles) runs float32 at every C and bf16 where C != 32
+// or a pointer is not 16-byte aligned; bf16 rows of 32 columns (the pillar
+// encoder's) take a design of their own for Hopper ("bfloat16 at C = 32",
+// further down: bf_local + bf_fix).
 //
 // Replaces the TPU kernels of pcaccumulation_tpu/kernels/segscan.py:
 //   _seg_pool_impl (_scan_block_kernel + _total_block_kernel): for
@@ -591,6 +595,641 @@ int backward_max(const void* x, const void* y, const void* g, const int* ids, vo
   return vec ? launch<MaxGrad<4, E>>(a, s) : launch<MaxGrad<1, E>>(a, s);
 }
 
+// ---- diagnostics of the bf16 kernels (tools/ab_k1_bf16.py, chip_smoke.py) ----
+
+// One launch of the two-launch design alone (phase 1: seg_partials, 2:
+// seg_tiles, 3: both). The second launch reads only the scratch that a
+// whole call left, so it is timed alone after one whole call.
+template <class Op>
+int launch_phase(const Args& a, cudaStream_t s, int phase) {
+  const dim3 grid((unsigned)a.n_tiles, (unsigned)((a.c + LANES * Op::V - 1) / (LANES * Op::V)));
+  if (phase & 1) seg_partials<Op><<<grid, THREADS, 0, s>>>(a);
+  if (phase & 2) seg_tiles<Op><<<grid, THREADS, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM, registers, local (spill) bytes, shared bytes and
+// threads of one kernel: 5 ints at out.
+template <class Kern>
+int kernel_info(Kern kernel, int dyn_smem, int* out) {
+  cudaFuncAttributes at;
+  cudaError_t err = cudaFuncGetAttributes(&at, kernel);
+  if (err == cudaSuccess && dyn_smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn_smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, dyn_smem);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = blocks;
+  out[1] = at.numRegs;
+  out[2] = (int)at.localSizeBytes;
+  out[3] = (int)at.sharedSizeBytes + dyn_smem;
+  out[4] = THREADS;
+  return 0;
+}
+
+// ---- bfloat16 at C = 32: the Hopper design ------------------------------
+//
+// The pillar encoder's rows are 32 bf16 (64 bytes), so a tile of 256 rows
+// is 16 KB per row array, and the bf16 entry points take this path when
+// C == 32 and every row array and the ids are 16-byte aligned (the
+// two-launch seg_partials + seg_tiles, above, keep C != 32 and misaligned
+// pointers). What the two-launch design measured on the card (PERF.md,
+// K1's bf16 per-launch split): its two launches add up (no overlap), the
+// second (seg_tiles) is two thirds of the time, and the gradient's
+// seg_tiles holds 2 blocks per SM; a padded tail is read in launch A and
+// again in launch B. This design:
+//   1. bf_local, one pass over the rows, independent per tile: a persistent
+//      block (grid = SMs x resident blocks, tiles in a static stride) keeps
+//      a ring of 2 tiles in shared memory, each filled by cp.async.bulk
+//      (the copy engine's 1-D bulk copy, TMA) completing on an mbarrier, so
+//      the next tile's bytes arrive while this one scans and stores. It runs
+//      seg_tiles' segmented scan on the tile (rows read from shared memory)
+//      and writes every run that begins and ends inside the tile; a tile
+//      that is one run (the padded tails) is only reduced. A run that
+//      crosses a tile edge it does not write: it stores the run's part in
+//      the tile (first[t], last[t]), the flags, the bounds of the tile's
+//      first and last run and, for the gradient, the rows' tie bits (one
+//      32-bit word a thread). So every row is read once; no tile waits for
+//      another.
+//   2. bf_fix, launched with programmatic dependent launch (PDL: set up as
+//      bf_local's blocks finish; it waits at griddepcontrol.wait), writes
+//      the rows of the crossing runs only, 4 tiles a block: a warp a tile
+//      finds its runs' spans (warp_walk_*, 256 flags a step) and sums a
+//      short span itself (warp_span); the block sums each distinct long span
+//      once (span_total: the tiles of a tail share it); then every thread
+//      writes its rows, the total broadcast or, for the gradient, tie ? sum
+//      g / ties : 0 from the stored tie bits (divided once per run). It
+//      reads no row array.
+// The orders of addition are functions of the ids alone (in-thread, then
+// the groups in order; a one-run tile by reduce_groups; a crossing run
+// last[a] + first[a+1..b] by warp_span or span_total, chosen by b - a),
+// never of the schedule or the ring.
+// Not taken: 16-byte accesses (the rows are read from shared memory, 8
+// bytes (4 bf16) a lane, so that a thread's registers stay at seg_tiles' 8
+// rows x 4 columns); a third stage (no faster on the card); a cooperative
+// grid barrier; second-level partials (the tails' partials stay in L2 and
+// each bf_fix block sums a tail's once).
+
+constexpr int BF_C = 32;                          // columns of this path
+constexpr int BF_TILE_BYTES = TILE * BF_C * 2;    // one row array of a tile: 16 KB
+constexpr int BF_IDS_BYTES = TILE * 4;
+
+struct BfArgs {
+  Args a;
+  int* bounds;      // [n_tiles]: end of the first run | start of the last run << 16
+  unsigned* tbits;  // [n_tiles, THREADS]: the gradient's tie bits, a word a thread
+};
+
+constexpr int BF_STAGES = 2;                      // tiles in flight per block (its ring)
+
+// Per op: the row arrays staged (x; or x, y, g) and the ring's shared memory.
+template <class Op>
+struct Bf {
+  static constexpr int ARR = Op::P == 2 ? 3 : 1;
+  static constexpr int STAGE_BYTES = ARR * BF_TILE_BYTES + BF_IDS_BYTES;
+  static constexpr int SMEM = BF_STAGES * STAGE_BYTES;
+};
+
+// The scratch of this path: first and last [n_tiles, P, C], flags and
+// bounds [n_tiles], and for the gradient the tie bits [n_tiles, THREADS];
+// the bf16 entry points take it at every C (seg_partials + seg_tiles use a
+// prefix).
+long long bf16_scratch_floats(int n, int c, int payload) {
+  const long long n_tiles = (n + TILE - 1) / TILE;
+  return n_tiles * (2LL * payload * c + 2 + (payload == 2 ? THREADS : 0));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, counted on bar.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Thread 0: tile t's row arrays and its ids (the whole 16-byte words of
+// them; the last tile's remaining 1-3 ids are loaded by threads) into a
+// stage, completing on bar.
+template <int ARR>
+__device__ void bf_fetch(const Args& a, unsigned char* stage, uint64_t* bar, int t) {
+  const int r0 = t * TILE;
+  const int rn = min(TILE, a.n - r0);
+  const unsigned rows = (unsigned)rn * BF_C * 2, ids = ((unsigned)rn * 4) & ~15u;
+  mbar_expect_tx(bar, ARR * rows + ids);
+  const void* src[3] = {a.x, a.y, a.g};
+#pragma unroll
+  for (int p = 0; p < ARR; ++p)
+    bulk_load(stage + p * BF_TILE_BYTES, static_cast<const char*>(src[p]) + (size_t)r0 * BF_C * 2,
+              rows, bar);
+  if (ids) bulk_load(stage + ARR * BF_TILE_BYTES, a.ids + r0, ids, bar);
+}
+
+// Launch 1: every tile's inner runs written, its crossing runs' parts kept.
+template <class Op>
+__global__ void __launch_bounds__(THREADS, Op::MIN_BLOCKS) bf_local(BfArgs b) {
+  using T = typename Op::T;
+  using B = Bf<Op>;
+  extern __shared__ __align__(128) unsigned char dsmem[];
+  __shared__ __align__(8) uint64_t bar[BF_STAGES];
+  __shared__ T sh[THREADS];
+  __shared__ int shead[GROUPS];
+  __shared__ int sfe, sls;  // the end of the tile's first run, the start of its last
+  const Args& a = b.a;
+  const int lane = threadIdx.x % LANES;
+  const int grp = threadIdx.x / LANES;
+  const int col = lane * Op::V;
+  const int g0 = grp * K;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BF_STAGES; ++s) mbar_init(&bar[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < BF_STAGES; ++s) {
+      const int t = blockIdx.x + s * gridDim.x;
+      if (t < a.n_tiles) bf_fetch<B::ARR>(a, dsmem + s * B::STAGE_BYTES, &bar[s], t);
+    }
+  }
+  for (int j = 0;; ++j) {
+    const int t = blockIdx.x + j * gridDim.x;
+    if (t >= a.n_tiles) break;
+    const int s = j % BF_STAGES;
+    unsigned char* st = dsmem + s * B::STAGE_BYTES;
+    int* sid = reinterpret_cast<int*>(st + B::ARR * BF_TILE_BYTES);
+    const int r0 = t * TILE;
+    const int rn = min(TILE, a.n - r0);
+    // the neighbours' ids, read while the tile is in flight
+    const bool has_l = r0 > 0, has_r = r0 + rn < a.n;
+    const int id_l = has_l ? a.ids[r0 - 1] : 0, id_r = has_r ? a.ids[r0 + rn] : 0;
+    mbar_wait(&bar[s], (unsigned)(j / BF_STAGES) & 1u);
+    if (rn & 3) {  // the last tile's ids past its whole 16-byte words
+      const int i = (rn & ~3) + (int)threadIdx.x;
+      if (i < rn) sid[i] = a.ids[r0 + i];
+      __syncthreads();
+    }
+    Args as = a;  // the tile's rows in shared memory: row i at i * C
+    as.x = st;
+    as.y = st + BF_TILE_BYTES;
+    as.g = st + 2 * BF_TILE_BYTES;
+    const int id0 = sid[0], id1 = sid[rn - 1];
+    const bool whole = id0 == id1;
+    const bool link_l = has_l && id_l == id0, link_r = has_r && id_r == id1;
+    if (threadIdx.x == 0)
+      a.flags[t] = (whole ? WHOLE : 0) | (link_l ? LINK_L : 0) | (link_r ? LINK_R : 0);
+
+    if (whole) {  // one run (a padded tail): its total, no scan
+      T acc = Op::identity(), unused = Op::identity();
+      unsigned bits = 0u;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int i = g0 + k;
+        if (i < rn) acc = Op::combine(acc, Op::load(as, i, 0, col, bits, k));
+      }
+      reduce_groups<Op>(acc, unused, sh);  // over the groups in a fixed order
+      if (link_l || link_r) {  // the tile's part of a longer run
+        if (grp == 0 && link_l) store_partial<Op>(a.first, a, t, col, acc);
+        if (grp == 0 && link_r) store_partial<Op>(a.last, a, t, col, acc);
+        if (Op::P == 2) b.tbits[(size_t)t * THREADS + threadIdx.x] = bits;
+        if (threadIdx.x == 0) b.bounds[t] = rn;
+      } else {  // a run of exactly this tile
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (g0 + k < rn) Op::store(a, r0 + g0 + k, col, acc, bits, k);
+        }
+      }
+      if (threadIdx.x == 0) {
+        const int tn = t + BF_STAGES * gridDim.x;
+        if (tn < a.n_tiles) bf_fetch<B::ARR>(a, st, &bar[s], tn);
+      }
+      continue;  // reduce_groups ended with a barrier: stage s and sh are free
+    }
+
+    T v[K];
+    unsigned bits = 0u, head = 0u;  // bit k: row g0 + k starts a run inside the tile
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = g0 + k;
+      const bool in = i < rn;
+      if (!in || i == 0 || sid[i] != sid[i - 1]) head |= 1u << k;
+      v[k] = in ? Op::load(as, i, i, col, bits, k) : Op::identity();
+    }
+    // in-thread inclusive segmented scan
+#pragma unroll
+    for (int k = 1; k < K; ++k) {
+      if (!((head >> k) & 1u)) v[k] = Op::combine(v[k - 1], v[k]);
+    }
+    // the carry from the groups before this one, over the groups in order
+    sh[threadIdx.x] = v[K - 1];
+    if (lane == 0) shead[grp] = head != 0u;
+    if (threadIdx.x == 0) {
+      sfe = rn;
+      sls = 0;
+    }
+    __syncthreads();
+    if (lane == 0) {  // the tile's first head after row 0, and its last head
+      const unsigned real = head & ((1u << min(max(rn - g0, 0), K)) - 1u);
+      const unsigned inner = grp == 0 ? real & ~1u : real;
+      if (inner) atomicMin(&sfe, g0 + __ffs(inner) - 1);
+      if (real) atomicMax(&sls, g0 + 31 - __clz(real));
+    }
+    if (!(head & 1u)) {  // row g0 continues a run begun in an earlier group
+      int gs = grp - 1;
+      while (!shead[gs]) --gs;
+      T carry = sh[gs * LANES + lane];
+      for (int gg = gs + 1; gg < grp; ++gg) carry = Op::combine(carry, sh[gg * LANES + lane]);
+      bool seg0 = true;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k > 0 && ((head >> k) & 1u)) seg0 = false;
+        if (seg0) v[k] = Op::combine(carry, v[k]);
+      }
+    }
+    __syncthreads();
+    // publish the value at the end of this group's first run, where it ends
+    // in the group; a group whose last run continues reads it from there
+    const int next = g0 + K;
+    const bool next_head = next >= rn || sid[next] != sid[next - 1];
+    const unsigned later = head & ~1u;
+    const int e0 = later ? __ffs(later) - 2 : K - 1;  // the first run's last row
+    if (later || next_head) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (k == e0) sh[threadIdx.x] = v[k];
+      }
+    }
+    __syncthreads();
+    T cur;
+    if (next_head) {
+      cur = v[K - 1];
+    } else {
+      const int e = upper_bound(sid, rn, sid[next - 1]) - 1;  // the run's last row
+      cur = sh[(e / K) * LANES + lane];
+    }
+    const int fe = sfe, ls = sls;  // the first run is rows [0, fe), the last [ls, rn)
+    // inner runs written; a crossing run's part in the tile kept as a partial
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+      const int i = g0 + k;
+      if (i < rn) {
+        if ((link_l && i < fe) || (link_r && i >= ls)) {
+          if (i == 0 && link_l) store_partial<Op>(a.first, a, t, col, cur);
+          if (i == rn - 1 && link_r) store_partial<Op>(a.last, a, t, col, cur);
+        } else {
+          Op::store(a, r0 + i, col, cur, bits, k);
+        }
+      }
+      if (k > 0 && ((head >> k) & 1u)) cur = v[k - 1];
+    }
+    if (link_l || link_r) {
+      if (Op::P == 2) b.tbits[(size_t)t * THREADS + threadIdx.x] = bits;
+      if (threadIdx.x == 0) b.bounds[t] = fe | (ls << 16);
+    }
+    __syncthreads();  // every thread is done with stage s, sh, sfe and sls
+    if (threadIdx.x == 0) {
+      const int tn = t + BF_STAGES * gridDim.x;
+      if (tn < a.n_tiles) bf_fetch<B::ARR>(a, st, &bar[s], tn);
+    }
+  }
+  // this block's tiles are done: bf_fix may be launched (it waits for this
+  // grid's end at griddepcontrol.wait). Triggered at the start instead, bf_fix's
+  // waiting blocks cost ~3 us at [120000, 32] on the card.
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// The largest tile k <= k0 that does not pass a run on to its left (the
+// tile where the run that tile k0 continues begins), found by one warp:
+// lane l tests tiles base - 8l - j (j = 0..7), 256 a step. flag0 is
+// flags[k0].
+__device__ int warp_walk_left(const Args& a, int k0, int flag0, int l) {
+  if (k0 <= 0 || (flag0 & (WHOLE | LINK_L)) != (WHOLE | LINK_L)) return k0;
+  for (int base = k0 - 1;; base -= 256) {
+    int hit = -1;
+#pragma unroll
+    for (int j = 7; j >= 0; --j) {
+      const int k = base - 8 * l - j;
+      if (k <= 0 || (a.flags[k] & (WHOLE | LINK_L)) != (WHOLE | LINK_L)) hit = k;
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, hit >= 0 || base - 8 * l - 7 <= 0);
+    if (m) return __shfl_sync(0xffffffffu, max(hit, 0), __ffs(m) - 1);
+  }
+}
+
+// The smallest tile k >= k0 that does not pass a run on to its right.
+__device__ int warp_walk_right(const Args& a, int k0, int flag0, int l) {
+  const int last = a.n_tiles - 1;
+  if (k0 >= last || (flag0 & (WHOLE | LINK_R)) != (WHOLE | LINK_R)) return k0;
+  for (int base = k0 + 1;; base += 256) {
+    int hit = -1;
+#pragma unroll
+    for (int j = 7; j >= 0; --j) {
+      const int k = base + 8 * l + j;
+      if (k >= last || (a.flags[k] & (WHOLE | LINK_R)) != (WHOLE | LINK_R)) hit = min(k, last);
+    }
+    const unsigned m = __ballot_sync(0xffffffffu, hit >= 0);
+    if (m) return __shfl_sync(0xffffffffu, hit, __ffs(m) - 1);
+  }
+}
+
+// Spans of up to this many tiles are summed by one warp; longer ones (the
+// padded tails) by the whole block (span_total).
+constexpr int BF_SHORT_SPAN = 8;
+
+// The total of the run over tiles ka..kb (last[ka], first[ka+1..kb]) for
+// the V columns at col, over a short span, by one warp and no barrier: its
+// row slots sub (0-3) take tiles ka + sub, ka + sub + 4, ... in order and
+// combine pairwise (lane ^ 8, then ^ 16). A function of (ka, kb) alone,
+// the same bits in every lane (addition and max commute).
+template <class Op>
+__device__ typename Op::T warp_span(const Args& a, int ka, int kb, int col, int sub) {
+  using T = typename Op::T;
+  T acc = Op::identity();
+  for (int k = ka + sub; k <= kb; k += 4)
+    acc = Op::combine(acc, load_partial<Op>(k == ka ? a.last : a.first, a, k, col));
+#pragma unroll
+  for (int off = 8; off <= 16; off <<= 1) {
+    T o;
+#pragma unroll
+    for (int j = 0; j < Op::N; ++j) o.v[j] = __shfl_xor_sync(0xffffffffu, acc.v[j], off);
+    acc = Op::combine(acc, o);
+  }
+  return acc;
+}
+
+// The element type of an op's rows.
+template <class Op>
+struct ElemOf;
+template <int VEC, bool IS_MAX, class E>
+struct ElemOf<Pool<VEC, IS_MAX, E>> {
+  using type = E;
+};
+template <int VEC, class E>
+struct ElemOf<MaxGrad<VEC, E>> {
+  using type = E;
+};
+
+// A run's total as every row of it is written: the forward's value, or the
+// gradient's share sum g / max(ties, 1) (divided once per run and column,
+// the division MaxGrad::store makes per row).
+template <class Op>
+__device__ typename Op::T bf_final(const typename Op::T& tot) {
+  typename Op::T r = tot;
+  if constexpr (Op::P == 2) {
+#pragma unroll
+    for (int j = 0; j < Op::V; ++j) r.v[j] = __fdiv_rn(tot.v[j], fmaxf(tot.v[Op::V + j], 1.0f));
+  }
+  return r;
+}
+
+// Row `row`'s V columns at col from a bf_final value: the value, or the
+// share on the tie set and 0 off it (tie bit k * V + j of bits).
+template <class Op>
+__device__ void bf_store(const Args& a, int row, int col, const typename Op::T& fv, unsigned bits,
+                         int k) {
+  float o[Op::V];
+#pragma unroll
+  for (int j = 0; j < Op::V; ++j)
+    o[j] = Op::P == 1 || ((bits >> (k * Op::V + j)) & 1u) ? fv.v[j] : 0.0f;
+  store_vec<Op::V>(static_cast<typename ElemOf<Op>::type*>(a.out) + row * a.c + col, o);
+}
+
+constexpr int BF_FIX_TILES = 4;  // tiles of a bf_fix block
+
+// Launch 2 (PDL after bf_local): the rows of the runs that cross a tile
+// edge, BF_FIX_TILES tiles a block. Warp w < BF_FIX_TILES reads tile
+// t0 + w's flags and bounds, finds its runs' spans (warp_walk_*) and sums
+// the short ones (warp_span); the block sums each distinct long span once
+// (span_total: the tiles of a tail share it); then all threads, laid out as
+// bf_local's (each reads its own word of tie bits), write the rows tile by
+// tile. No row array is read.
+template <class Op>
+__global__ void __launch_bounds__(THREADS) bf_fix(BfArgs b) {
+  using T = typename Op::T;
+  constexpr int NQ = 2 * BF_FIX_TILES;  // (tile, side) slots
+  __shared__ T sh[2 * WARPS * LANES];
+  __shared__ T sval[NQ][LANES];  // slot q = 2 * tile + side (0: rows [0, fe), 1: [ls, rn))
+  __shared__ int sfe[BF_FIX_TILES], sls[BF_FIX_TILES];
+  __shared__ int sreq[NQ][2];  // a long span (ka, kb) to sum, ka < 0: none
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const Args& a = b.a;
+  const int w = threadIdx.x / 32, l = threadIdx.x & 31;
+  const int lane = threadIdx.x % LANES, grp = threadIdx.x / LANES;
+  const int col = lane * Op::V;
+  const int t0 = blockIdx.x * BF_FIX_TILES;
+  unsigned words[BF_FIX_TILES];  // this thread's tie words of the block's tiles
+#pragma unroll
+  for (int j = 0; j < BF_FIX_TILES; ++j)
+    words[j] = Op::P == 2 && t0 + j < a.n_tiles ? b.tbits[(size_t)(t0 + j) * THREADS + threadIdx.x]
+                                                : 0u;
+  if (w < BF_FIX_TILES) {
+    const int t = t0 + w;
+    const bool valid = t < a.n_tiles;
+    const int f = valid ? a.flags[t] : 0;
+    const int f_prev = valid && t > 0 ? a.flags[t - 1] : 0;
+    const int f_next = valid && t + 1 < a.n_tiles ? a.flags[t + 1] : 0;
+    const int bd = valid ? b.bounds[t] : 0;
+    const bool whole = f & WHOLE, link_l = f & LINK_L, link_r = f & LINK_R;
+    const int rn = valid ? min(TILE, a.n - t * TILE) : 0;
+    // rows [0, fe) take the left span's total (all of a one-run tile), rows
+    // [ls, rn) the right one's
+    const int fe = !(link_l || link_r) ? 0 : whole ? rn : link_l ? (bd & 0xffff) : 0;
+    const int ls = whole || !link_r ? rn : (bd >> 16);
+    const int ka = link_l ? warp_walk_left(a, t - 1, f_prev, l) : t;
+    const int kb = link_r ? warp_walk_right(a, t + 1, f_next, l) : t;
+    const int span[2][2] = {{ka, whole ? kb : t}, {t, kb}};
+    const bool need[2] = {fe > 0, ls < rn};
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      const bool is_long = need[side] && span[side][1] - span[side][0] >= BF_SHORT_SPAN;
+      if (need[side] && !is_long) {
+        const T v = bf_final<Op>(warp_span<Op>(a, span[side][0], span[side][1], col, l / LANES));
+        if (l < LANES) sval[2 * w + side][l] = v;
+      }
+      if (l == 0) {
+        sreq[2 * w + side][0] = is_long ? span[side][0] : -1;
+        sreq[2 * w + side][1] = span[side][1];
+      }
+    }
+    if (l == 0) {
+      sfe[w] = fe;
+      sls[w] = ls;
+    }
+  }
+  __syncthreads();
+  // the distinct long spans, each summed once by the whole block
+  int qa[NQ], qb[NQ];
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    qa[q] = sreq[q][0];
+    qb[q] = sreq[q][1];
+  }
+  unsigned todo = 0u;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    bool first = qa[q] >= 0;
+#pragma unroll
+    for (int p = 0; p < q; ++p) first = first && !(qa[p] == qa[q] && qb[p] == qb[q]);
+    todo |= first ? 1u << q : 0u;
+  }
+  if (todo) {
+    for (unsigned m = todo; m; m &= m - 1) {  // block-uniform
+      const int q = __ffs(m) - 1;
+      const int ka = sreq[q][0], kb = sreq[q][1];
+      const T v = bf_final<Op>(span_total<Op>(a, ka, kb, col, true, sh));
+      if (grp == 0) {
+#pragma unroll
+        for (int p = 0; p < NQ; ++p)
+          if (qa[p] == ka && qb[p] == kb) sval[p][lane] = v;
+      }
+    }
+    __syncthreads();
+  }
+  const int g0 = grp * K;
+#pragma unroll
+  for (int j = 0; j < BF_FIX_TILES; ++j) {
+    const int t = t0 + j;
+    if (t >= a.n_tiles) break;
+    const int fe = sfe[j], ls = sls[j];
+    const int r0 = t * TILE;
+    const int rn = min(TILE, a.n - r0);
+    if (fe == 0 && ls >= rn) continue;
+    const T vl = sval[2 * j][lane], vr = sval[2 * j + 1][lane];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = g0 + k;
+      if (i < fe) bf_store<Op>(a, r0 + i, col, vl, words[j], k);
+      else if (i >= ls && i < rn) bf_store<Op>(a, r0 + i, col, vr, words[j], k);
+    }
+  }
+}
+
+// Resident blocks per SM of a kernel at its shared memory (cached per
+// device and kernel), times the SMs: the persistent grid.
+template <class Kern>
+int resident_grid(Kern kernel, int smem, int* cache) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 16) return 0;
+  if (cache[dev] > 0) return cache[dev];
+  int sms = 0, blocks = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  const cudaFuncAttribute max_smem = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  if (smem > 48 * 1024 && cudaFuncSetAttribute(kernel, max_smem, smem) != cudaSuccess) return 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS, smem) != cudaSuccess)
+    return 0;
+  cache[dev] = sms * blocks;
+  return cache[dev];
+}
+
+// The two launches of this path (phase 1: bf_local, 2: bf_fix, 3: both).
+template <class Op>
+int bf_launch(const BfArgs& b, cudaStream_t s, int phase) {
+  static int local_grid[16];
+  const int g1 = resident_grid(bf_local<Op>, Bf<Op>::SMEM, local_grid);
+  if (g1 <= 0) {
+    cudaGetLastError();
+    return (int)cudaErrorLaunchOutOfResources;
+  }
+  if (phase & 1) {
+    bf_local<Op><<<min(g1, b.a.n_tiles), THREADS, Bf<Op>::SMEM, s>>>(b);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (phase & 2) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)((b.a.n_tiles + BF_FIX_TILES - 1) / BF_FIX_TILES));
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, bf_fix<Op>, b);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The bf16 scratch check and, where C == 32 and the pointers are aligned,
+// this path's arguments; false: seg_partials + seg_tiles.
+bool bf_prepare(BfArgs& b, float* scratch, long long scratch_floats, int payload, int& rc) {
+  Args& a = b.a;
+  rc = 0;
+  if (scratch_floats < bf16_scratch_floats(a.n, a.c, payload)) {
+    rc = (int)cudaErrorInvalidValue;
+    return false;
+  }
+  bool ok = a.c == BF_C && aligned(a.x) && aligned(a.ids) && aligned(a.out);
+  if (payload == 2) ok = ok && aligned(a.y) && aligned(a.g);
+  if (!ok) return false;
+  rc = prepare(a, scratch, scratch_floats, payload);
+  b.bounds = a.flags + a.n_tiles;
+  b.tbits = reinterpret_cast<unsigned*>(b.bounds + a.n_tiles);
+  return rc == 0;
+}
+
+// The bf16 forward (op 0 max, 1 sum) and gradient of max (op 2); design 0
+// runs seg_partials + seg_tiles at every C, design 1 this path where it
+// applies.
+int bf16_call(int design, int op, int phase, const void* x, const void* y, const void* g,
+              const int* ids, void* out, float* scratch, long long scratch_floats, int n, int c,
+              void* stream) {
+  using E = __nv_bfloat16;
+  if (n <= 0 || c <= 0) return 0;
+  const int payload = op == 2 ? 2 : 1;
+  BfArgs b{{x, y, g, ids, out, nullptr, nullptr, nullptr, n, c, 0}, nullptr, nullptr};
+  int rc = 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (design == 1) {
+    if (bf_prepare(b, scratch, scratch_floats, payload, rc)) {
+      if (op == 0) return bf_launch<Pool<4, true, E>>(b, s, phase);
+      if (op == 1) return bf_launch<Pool<4, false, E>>(b, s, phase);
+      return bf_launch<MaxGrad<4, E>>(b, s, phase);
+    }
+    if (rc) return rc;
+    if (phase != 3) return (int)cudaErrorInvalidValue;  // a phase alone: this path only
+    return op == 2 ? backward_max<E>(x, y, g, ids, out, scratch, scratch_floats, n, c, stream)
+                   : forward<E>(x, ids, out, scratch, scratch_floats, n, c, op, stream);
+  }
+  if (c % 4 != 0) return (int)cudaErrorInvalidValue;  // a phase alone: 4 columns a thread only
+  rc = prepare(b.a, scratch, scratch_floats, payload);
+  if (rc) return rc;
+  if (op == 0) return launch_phase<Pool<4, true, E>>(b.a, s, phase);
+  if (op == 1) return launch_phase<Pool<4, false, E>>(b.a, s, phase);
+  return launch_phase<MaxGrad<4, E>>(b.a, s, phase);
+}
+
 }  // namespace
 
 // The forward. x [n, c] f32 contiguous, ids [n] int32 non-decreasing, out
@@ -607,7 +1246,7 @@ extern "C" int segpool_forward(const float* x, const int* ids, float* out, float
 extern "C" int segpool_forward_bf16(const void* x, const int* ids, void* out, float* scratch,
                                     long long scratch_floats, int n, int c, int op,
                                     void* stream) {
-  return forward<__nv_bfloat16>(x, ids, out, scratch, scratch_floats, n, c, op, stream);
+  return bf16_call(1, op, 3, x, nullptr, nullptr, ids, out, scratch, scratch_floats, n, c, stream);
 }
 
 // The gradient of the max forward: x, y (its output) and g (the cotangent
@@ -627,5 +1266,46 @@ extern "C" int segpool_backward_max_bf16(const void* x, const void* y, const voi
                                          const int* ids, void* out, float* scratch,
                                          long long scratch_floats, int n, int c,
                                          void* stream) {
-  return backward_max<__nv_bfloat16>(x, y, g, ids, out, scratch, scratch_floats, n, c, stream);
+  return bf16_call(1, 2, 3, x, y, g, ids, out, scratch, scratch_floats, n, c, stream);
+}
+
+
+// The float32 scratch a bf16 entry point takes (at least): bf16_scratch_floats
+// (payload 1: the forward, 2: the gradient of max). The float32 entry
+// points take n_tiles * (2 * payload * c + 1).
+extern "C" long long segpool_bf16_scratch_floats(int n, int c, int payload) {
+  return bf16_scratch_floats(n, c, payload);
+}
+
+// Diagnostics: one phase of a bf16 design alone on the arguments of the
+// entry points above (op 0 max, 1 sum, 2 the gradient of max; design 0 =
+// seg_partials + seg_tiles at 4 columns a thread, 1 = the Hopper
+// path, which needs C == 32 and aligned pointers for a phase alone; phase
+// 1, 2 or 3 = both). Returns the first CUDA error, or 0.
+extern "C" int segpool_bf16_phase(int design, int op, int phase, const void* x, const void* y,
+                                  const void* g, const int* ids, void* out, float* scratch,
+                                  long long scratch_floats, int n, int c, void* stream) {
+  return bf16_call(design, op, phase, x, y, g, ids, out, scratch, scratch_floats, n, c, stream);
+}
+
+// Diagnostics: for each kernel of a bf16 design at C = 32 (the forward's
+// two for max, then the gradient's two; design 0: seg_partials and
+// seg_tiles, 1: bf_local and bf_fix), 5 ints (resident blocks per SM,
+// registers, spill bytes, shared bytes, threads) at out. Returns the
+// number of kernels, or minus a CUDA error.
+extern "C" int segpool_bf16_kernel_info(int design, int* out, int cap) {
+  using E = __nv_bfloat16;
+  using F = Pool<4, true, E>;
+  using G = MaxGrad<4, E>;
+  if (design < 0 || design > 1 || cap < 20) return -(int)cudaErrorInvalidValue;
+  int rc = design == 0 ? kernel_info(seg_partials<F>, 0, out)
+                       : kernel_info(bf_local<F>, Bf<F>::SMEM, out);
+  if (!rc)
+    rc = design == 0 ? kernel_info(seg_tiles<F>, 0, out + 5) : kernel_info(bf_fix<F>, 0, out + 5);
+  if (!rc)
+    rc = design == 0 ? kernel_info(seg_partials<G>, 0, out + 10)
+                     : kernel_info(bf_local<G>, Bf<G>::SMEM, out + 10);
+  if (!rc)
+    rc = design == 0 ? kernel_info(seg_tiles<G>, 0, out + 15) : kernel_info(bf_fix<G>, 0, out + 15);
+  return rc ? -rc : 4;
 }

@@ -29,13 +29,16 @@ HOST_ONLY_FLAGS = {"-shared", "-Xcompiler", "-fPIC"}  # of the shared library, n
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
-# C entry points of each source: name -> (argtypes); every one returns int
+# C entry points of each source: name -> (argtypes); each returns int (see RESTYPES)
 SIGNATURES = {
     "segscan": {
         "segpool_forward": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
         "segpool_forward_bf16": [_P, _P, _P, _P, _I64, _I32, _I32, _I32, _P],
         "segpool_backward_max": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
         "segpool_backward_max_bf16": [_P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+        "segpool_bf16_scratch_floats": [_I32, _I32, _I32],
+        "segpool_bf16_phase": [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I32, _I32, _P],
+        "segpool_bf16_kernel_info": [_I32, _P, _I32],
     },
     "row_shift": {
         "row_shift_blocks_forward": [_P, _P, _P, _I64, _I32, _I32, _I32, ctypes.c_float, _P],
@@ -46,6 +49,9 @@ SIGNATURES = {
         "nn_forward": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I32, _I32, _I32, _I32, _P],
     },
 }
+
+# entry points that return something other than an int error code
+RESTYPES = {"segpool_bf16_scratch_floats": _I64}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -142,7 +148,7 @@ def load_library(name: str) -> ctypes.CDLL:
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(fn_name, ctypes.c_int)
     _loaded[name] = lib
     return lib
 

@@ -19,7 +19,10 @@ x may be float32 or bfloat16. A bf16 x goes to the bf16 kernel
 encoder runs under `precision.compute_dtype: bfloat16`): rows widened to
 float32 where they are loaded, reduced in float32 and rounded to bf16 once
 at the store; the plain version computes in float32 and casts once. It is
-never cast to float32 for the float32 kernel. Its launches count on
+never cast to float32 for the float32 kernel. At C = 32 with aligned rows
+(the pillar encoder's) the bf16 kernels are their own design for Hopper:
+one pass that stages each tile in shared memory by bulk copies and writes
+the runs inside it, then the runs that cross a tile edge (csrc/segscan.cu). Its launches count on
 `seg_pool.launches_bf16`, the float32 kernel's on `seg_pool.launches`.
 
 Its gradient (`SegPool`, the JAX package's `_seg_pool_bwd`) is one fused
@@ -62,14 +65,27 @@ def seg_pool_plain(x: torch.Tensor, ids: torch.Tensor, op: str = "max") -> torch
 
 
 TILE_ROWS = 256  # rows of a tile: TILE in csrc/segscan.cu
+TILE_THREADS = 256  # threads of a tile's block: THREADS in csrc/segscan.cu
+
+
+def scratch_floats(n: int, c: int, dtype: torch.dtype, payload: int) -> int:
+    """The float32 scratch a C entry point takes for [n, c] rows of dtype
+    (payload 1: the forward, 2: the gradient of max, whose partials hold g
+    and the tie count): two partials [n_tiles, payload, c] and the tile
+    flags (`prepare` in csrc/segscan.cu); in bf16 also each tile's run
+    bounds and, for the gradient, a word of tie bits per thread
+    (`bf16_scratch_floats`). O(N / TILE_ROWS * C) floats."""
+    n_tiles = -(-n // TILE_ROWS)
+    if dtype == torch.bfloat16:
+        return n_tiles * (2 * payload * c + 2 + (TILE_THREADS if payload == 2 else 0))
+    return n_tiles * (2 * payload * c + 1)
 
 
 def _scratch(x: torch.Tensor, payload: int) -> torch.Tensor:
-    """The kernel's scratch: two partials [n_tiles, payload, C] and the
-    tile flags, O(N / TILE_ROWS * C) floats."""
+    """The kernel's scratch for x (`scratch_floats`)."""
     n, c = x.shape
-    n_tiles = -(-n // TILE_ROWS)
-    return torch.empty(n_tiles * (2 * payload * c + 1), dtype=torch.float32, device=x.device)
+    return torch.empty(scratch_floats(n, c, x.dtype, payload), dtype=torch.float32,
+                       device=x.device)
 
 
 def _check_kernel_inputs(ids: torch.Tensor, *tensors: torch.Tensor,

@@ -11,6 +11,9 @@ it they run with
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -21,11 +24,17 @@ from pcaccumulation_tpu_torch.kernels.row_shift import (
     row_shift_blocks_plain,
 )
 from pcaccumulation_tpu_torch.kernels.segscan import (
+    TILE_ROWS,
+    TILE_THREADS,
+    _scratch,
+    scratch_floats,
     seg_pool,
     seg_pool_backward,
     seg_pool_backward_plain,
     seg_pool_plain,
 )
+
+SEGSCAN_CU = Path(__file__).resolve().parents[1] / "pcaccumulation_tpu_torch" / "csrc" / "segscan.cu"
 
 
 def _sorted_ids(rng, n, m, long_run_at=None, run_len=0, tail=0):
@@ -215,6 +224,33 @@ def test_row_shift_plain_matches_pallas_interpret(nb):
     plain = row_shift_blocks_plain(torch.from_numpy(img), torch.from_numpy(ki),
                                    torch.from_numpy(f), nb).numpy()
     np.testing.assert_array_equal(got, plain)
+
+
+@pytest.mark.parametrize("n,c", [(1, 32), (255, 9), (256, 32), (257, 32), (120000, 32),
+                                 (480000, 32)])
+@pytest.mark.parametrize("payload", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_seg_pool_scratch_matches_c_entry(dtype, payload, n, c):
+    """The wrapper allocates (`_scratch`) exactly `scratch_floats`, which
+    is what the C entry points require: its constants are csrc/segscan.cu's
+    (a tile of THREADS / LANES * K rows, a tie word per thread of its
+    block), and its two formulas are the source's: `prepare`'s two
+    partials and a flag a tile in float32, `bf16_scratch_floats`' two
+    partials, the flag and the run bounds a tile, and for the gradient the
+    tie words, in bf16 (payload 1: the forward; 2: the gradient of max)."""
+    src = SEGSCAN_CU.read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert const["THREADS"] // const["LANES"] * const["K"] == TILE_ROWS
+    assert const["THREADS"] == TILE_THREADS
+    assert "if (scratch_floats < 2 * part + a.n_tiles) return (int)cudaErrorInvalidValue;" in src
+    assert "return n_tiles * (2LL * payload * c + 2 + (payload == 2 ? THREADS : 0));" in src
+    n_tiles = -(-n // TILE_ROWS)
+    part = n_tiles * payload * c
+    want = (2 * part + 2 * n_tiles + (n_tiles * TILE_THREADS if payload == 2 else 0)
+            if dtype == torch.bfloat16 else 2 * part + n_tiles)
+    x = torch.empty((n, c), dtype=dtype)
+    assert scratch_floats(n, c, dtype, payload) == want
+    assert _scratch(x, payload).numel() == want and _scratch(x, payload).dtype == torch.float32
 
 
 @pytest.fixture
@@ -468,6 +504,80 @@ def test_seg_pool_bf16_gradient_kernel_at_tile_edges(cuda, name, c):
     xg = xt.clone().requires_grad_(True)
     seg_pool(xg, it, "max").backward(gt)
     assert torch.equal(xg.grad, b1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c", [(1, 32), (257, 9), (120000, 32)])
+@pytest.mark.parametrize("payload", [1, 2])
+def test_seg_pool_bf16_entry_takes_the_wrappers_scratch(cuda, payload, n, c):
+    """What a bf16 C entry point requires (`segpool_bf16_scratch_floats`) is
+    `scratch_floats`: it refuses one float fewer and, on exactly that
+    many, gives the plain version's max (or gradient of max)."""
+    from pcaccumulation_tpu_torch.kernels import build
+
+    lib = build.load_library("segscan")
+    need = scratch_floats(n, c, torch.bfloat16, payload)
+    assert lib.segpool_bf16_scratch_floats(n, c, payload) == need
+    x, ids = _k1_case(5, n=n, c=c, tail=n // 3)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    it = torch.from_numpy(ids).to(cuda)
+    y = seg_pool_plain(xt, it, "max")
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).to(cuda).to(xt.dtype)
+    out = torch.empty_like(xt)
+    scratch = torch.empty(need, device=cuda)
+    stream = build.stream(xt)
+
+    def call(floats):
+        if payload == 1:
+            return lib.segpool_forward_bf16(xt.data_ptr(), it.data_ptr(), out.data_ptr(),
+                                            scratch.data_ptr(), floats, n, c, 0, stream)
+        return lib.segpool_backward_max_bf16(xt.data_ptr(), y.data_ptr(), g.data_ptr(),
+                                             it.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                                             floats, n, c, stream)
+
+    assert call(need - 1) != 0
+    assert call(need) == 0
+    torch.cuda.synchronize()
+    if payload == 1:
+        assert torch.equal(out, y)
+    else:
+        assert bool((out[xt != y] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,elems", [("on_tile_edges", 1), ("on_tile_edges", 4),
+                                        ("tail_90000", 4)])
+def test_seg_pool_bf16_kernels_on_misaligned_rows(cuda, name, elems):
+    """bf16 rows 2 or 8 bytes past a 16-byte boundary take the two-launch
+    kernels (one column a thread, or four) instead of the bulk-copy path:
+    max torch.equal to the plain version, the gradient of max within the
+    bound of test_seg_pool_bf16_gradient_kernel_at_tile_edges and zero off
+    the tie set, one launch each on the bf16 counts."""
+    x, ids, g = _k1_edge_case(name, 32)
+    xt = torch.from_numpy(x).to(cuda).to(torch.bfloat16)
+    gt = torch.from_numpy(g).to(cuda).to(torch.bfloat16)
+    it = torch.from_numpy(ids).to(cuda)
+
+    def off(t):
+        buf = torch.empty(t.numel() + elems, dtype=t.dtype, device=cuda)
+        moved = buf[elems:].view(t.shape)
+        moved.copy_(t)
+        assert moved.data_ptr() % 16 != 0
+        return moved
+
+    y = seg_pool_plain(xt, it, "max")
+    before = seg_pool.launches_bf16, seg_pool_backward.launches_bf16
+    assert torch.equal(seg_pool(off(xt), it, "max"), y)
+    got = seg_pool_backward(off(xt), it, off(y), off(gt))
+    assert (seg_pool.launches_bf16, seg_pool_backward.launches_bf16) == (before[0] + 1,
+                                                                         before[1] + 1)
+    want = seg_pool_backward_plain(xt, it, y, gt)
+    tie = xt == y
+    nt = seg_pool_plain(tie.float(), it, "sum").clamp(min=1.0)
+    tol = (_bf16_ulp(torch.maximum(want.float().abs(), got.float().abs()))
+           + 1e-5 * seg_pool_plain(gt.float().abs(), it, "sum") / nt)
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+    assert bool((got[~tie] == 0).all())
 
 
 @pytest.mark.cuda

@@ -82,7 +82,11 @@ def bf16_ulp(a: np.ndarray) -> np.ndarray:
 def k1_case(name: str, rng):
     """(ids, c, rblk) at a tile edge of the JAX kernel (rblk rows) and of
     the CUDA kernel (256 rows): a run over several blocks, runs ending on
-    block boundaries, N not a multiple of the block, narrow channels."""
+    block boundaries, N not a multiple of the block, narrow channels; and
+    the edges of the CUDA bf16 path at C=32: runs of exactly one tile (a
+    tile that is one run and passes nothing on), and a padded tail of 9
+    tiles and 3 rows after short runs (a run over more tiles than the
+    fix-up sums in one warp, ending 3 rows into the last tile)."""
     if name == "long_run":
         ids = np.sort(rng.integers(0, 500, 1500))
         ids[200:900] = ids[200]
@@ -90,10 +94,20 @@ def k1_case(name: str, rng):
     if name == "block_edges":
         lengths = [256, 256, 5, 251, 257, 255, 3, 128, 129, 7]
         return np.repeat(np.arange(len(lengths)) * 3, lengths).astype(np.int32), 32, 128
+    if name == "one_tile_runs":
+        lengths = [256, 256, 3, 253, 256, 519, 1]
+        return np.repeat(np.arange(len(lengths)) * 3, lengths).astype(np.int32), 32, 256
+    if name == "padded_tail":
+        body = np.sort(rng.integers(0, 60, 200))
+        ids = np.concatenate([body, np.full(9 * 256 + 3, body[-1] + 7)])
+        return ids.astype(np.int32), 32, 256
     return np.sort(rng.integers(0, 300, 777)).astype(np.int32), 9, 256  # ragged, C=9
 
 
-@pytest.mark.parametrize("case", ["long_run", "block_edges", "ragged_c9"])
+K1_CASES = ["long_run", "block_edges", "ragged_c9", "one_tile_runs", "padded_tail"]
+
+
+@pytest.mark.parametrize("case", K1_CASES)
 @pytest.mark.parametrize("op", ["max", "sum"])
 def test_k1_bf16_plain_matches_pallas(case, op):
     """K1's plain version on bf16 rows against the Pallas kernel in

@@ -52,7 +52,7 @@ from test_torch_train import (
 # ---------------------------------------------------------------- kernels
 
 
-@pytest.mark.parametrize("case", ["long_run", "block_edges", "ragged_c9"])
+@pytest.mark.parametrize("case", ["long_run", "block_edges", "ragged_c9", "padded_tail"])
 def test_k1_bf16_gradient_matches_jax_vjp(case):
     """The gradient of K1's max on bf16 rows with forced ties (every row
     rounded to halves, so several rows share a segment's maximum)
