@@ -34,8 +34,10 @@ the ego head sees background:
 - the test-mode forward (B=1) with the ego and instance ICPs on at 50
   iterations: finite, rigid poses, launches counted, timed with the share
   of clustering and ICP; at 3 iterations held against the CPU with the
-  card's cluster labels injected, and the clusterer held against the CPU's
-  on the card's inputs (pair agreement);
+  card's cluster labels injected, the instance ICP alone held against the
+  CPU's on the card's inputs (but the slices that the CPU moves itself when
+  it rounds the distances as K4 does), and the clusterer held against the
+  CPU's on the card's inputs (pair agreement);
 - the Tester over the 3 test scenes of data/synthetic (configs/
   synthetic.yaml, both ICPs on) into a temporary directory, the dumps'
   schema checked and read by the port's evaluation;
@@ -96,7 +98,13 @@ the ego head sees background:
   card over gloo, the default float32 val forward at F=2 and at S=2, the
   nuScenes micro-step at F=2 in float32 and in bf16, and a predict at S=2,
   each against this process's one-process run (K1 and K2 counted on each
-  rank, timed beside it).
+  rank, timed beside it);
+- training from scratch (`train_from_scratch_phase`): the model built on
+  the card from the seed's generator, bit-equal to the CPU build and every
+  leaf within the JAX package's initial distributions; then the
+  convergence protocol's CLI run (configs/synthetic.yaml, B=4, seed 42,
+  data/synthetic_conv) for 2 epochs, the counts zeroed before it: the
+  epoch-2 train loss below epoch 1's, every val metric finite.
 Any failure exits non-zero. The last two lines of stdout are the `kernels`
 JSON line and the result line `{"ok": true, "device": {...}}`. Without a
 CUDA device it exits 1 and prints no result. With `--only kernels` it stops
@@ -969,31 +977,76 @@ def scaled_init(model: torch.nn.Module, seed: int) -> None:
                 mod.running_var.copy_(1.0 + 0.2 * torch.rand(w.shape, generator=gen))
 
 
-def flax_init(model: torch.nn.Module, seed: int) -> None:
-    """Seeded weights drawn as the JAX package's flax modules initialise
-    theirs (tests/test_precision.py's weights): kernels normal with
-    variance 1 / fan-in (lecun; the UNet's xavier is the same for equal
-    widths), biases zero, BatchNorm at the identity. With zero biases the
-    logits carry the signal of the input, so bf16's relative rounding moves
-    a decision only where two logits nearly tie (under torch's default
-    initialisation the FB logits of the 288x288 canvas are one bias apart
-    by ~1e-7, and bf16 rounding alone decides the split)."""
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for mod in model.modules():
-            w = getattr(mod, "weight", None)
-            if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear,
-                                torch.nn.ConvTranspose2d)):
-                fan_in = (w.shape[0] if isinstance(mod, torch.nn.ConvTranspose2d)
-                          else w[0].numel())
-                w.copy_(torch.randn(w.shape, generator=gen) / fan_in ** 0.5)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif hasattr(mod, "running_var"):
-                w.fill_(1.0)
-                mod.bias.zero_()
-                mod.running_mean.zero_()
-                mod.running_var.fill_(1.0)
+def nn_difference_form(a: torch.Tensor, refs, queries):
+    """K4's own arithmetic in plain PyTorch: each distance as the sum of the
+    squared coordinate differences (K4 sums them with fused multiply-adds),
+    where the port's plain version (`kernels.chamfer._plain_packed`, which
+    this takes the place of) expands |a|^2 + |b|^2 - 2 a.b. The same
+    function rounded otherwise; the first argmin on ties, as both."""
+    import pcaccumulation_tpu_torch.kernels.chamfer as chamfer
+
+    p, n, _ = a.shape
+    m = int(refs.top)
+    if m == 0:
+        return (a.new_full((p, n), chamfer._BIG),
+                torch.zeros((p, n), dtype=torch.int32, device=a.device))
+    b = refs.points[:, :m, :3]
+    b_valid = torch.arange(m, device=a.device)[None] < refs.count[:, None]
+    block = max(1, (1 << 25) // (3 * p * m))
+    dists, idxs = [], []
+    for s in range(0, n, block):
+        d2 = ((a[:, s:s + block, None, :] - b[:, None, :, :]) ** 2).sum(-1)
+        d, i = torch.min(torch.where(b_valid[:, None, :], d2, chamfer._BIG), dim=-1)
+        dists.append(d)
+        idxs.append(i)
+    d2, idx = torch.cat(dists, 1), torch.gather(refs.order.long(), 1, torch.cat(idxs, 1))
+    if queries is not None:
+        d2 = torch.where(queries.valid, d2, chamfer._BIG)
+        idx = torch.where(queries.valid, idx, 0)
+    return d2, idx.to(torch.int32)
+
+
+class difference_form:
+    """Within it, K4's plain version on the CPU computes its distances as
+    K4 does (`nn_difference_form`)."""
+
+    def __enter__(self):
+        import pcaccumulation_tpu_torch.kernels.chamfer as chamfer
+
+        self.plain = chamfer._plain_packed
+        chamfer._plain_packed = nn_difference_form
+
+    def __exit__(self, *exc):
+        import pcaccumulation_tpu_torch.kernels.chamfer as chamfer
+
+        chamfer._plain_packed = self.plain
+
+
+class recording_instance_icp:
+    """Within it, each call of the instance ICP (`refine_instance_poses`,
+    as the reconstruction stage calls it) appends its inputs and its
+    result to `calls`."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import pcaccumulation_tpu_torch.models.tpointnet as tpointnet
+
+        self.refine = tpointnet.refine_instance_poses
+
+        def record(*args, **kw):
+            out = self.refine(*args, **kw)
+            self.calls.append((args, kw, out))
+            return out
+
+        tpointnet.refine_instance_poses = record
+        return self
+
+    def __exit__(self, *exc):
+        import pcaccumulation_tpu_torch.models.tpointnet as tpointnet
+
+        tpointnet.refine_instance_poses = self.refine
 
 
 def leaf_criterion(grads_a: dict, grads_b: dict,
@@ -1342,7 +1395,8 @@ def pair_agreement(x: np.ndarray, y: np.ndarray) -> float:
 def test_path_phase(port, cfg_base: dict, weights: dict, batches: list, smi: str):
     """The test-mode forward at the default config with both ICPs at 50
     iterations; then at 3 iterations the card against the CPU with the
-    card's labels injected, and the clusterer against the CPU's. Returns
+    card's labels injected, the instance ICP alone on the card's inputs
+    against the CPU's, and the clusterer against the CPU's. Returns
     (K4 launches on the path, median forward ms)."""
     from pcaccumulation_tpu_torch.kernels.chamfer import nn
     from pcaccumulation_tpu_torch.kernels.row_shift import row_shift, row_shift_blocks
@@ -1351,6 +1405,7 @@ def test_path_phase(port, cfg_base: dict, weights: dict, batches: list, smi: str
     from pcaccumulation_tpu_torch.profile_forward import (
         NESTED,
         _with_stage_events,
+        calibrate_heads,
         test_mode_config,
     )
 
@@ -1418,7 +1473,8 @@ def test_path_phase(port, cfg_base: dict, weights: dict, batches: list, smi: str
     cpu_model.load_state_dict({k: v.cpu() for k, v in weights.items()})
     bt = batches[0]
     with torch.no_grad():
-        gpu = gpu_model(bt, mode="test")
+        with recording_instance_icp() as icp_calls:
+            gpu = gpu_model(bt, mode="test")
         labels = gpu["inst_labels_est"]
         cpu = cpu_model({k: v.cpu() for k, v in bt.items()}, mode="test",
                         inst_labels_override=labels.cpu())
@@ -1444,8 +1500,11 @@ def test_path_phase(port, cfg_base: dict, weights: dict, batches: list, smi: str
     # rotations about the centroid); a slice of a few dozen points then has
     # a handful of pairs within the threshold, and one pair more or less (a
     # near tie, a point at the threshold) moves its Kabsch update far. Held
-    # per (instance, frame): every slice with 100 or more points in both
-    # frames within 1e-2, at least 85 % of all slices, 99 % of the points
+    # per (instance, frame). The whole path: at least 85 % of the slices
+    # and 99 % of the points within 1e-2; its inputs differ within the
+    # tolerances above (ego poses 1e-3), and on the CPU alone K4's own
+    # arithmetic in place of the plain expansion moves slices of over 100
+    # points a frame by 0.26 (tools/icp_spread.py).
     valid_pts = bt["point_valid"][0].cpu()
     lab0 = labels[0].cpu()
     tid0 = bt["time_idx"][0].cpu().long()
@@ -1462,9 +1521,50 @@ def test_path_phase(port, cfg_base: dict, weights: dict, batches: list, smi: str
     rec_share = float(((gpu["rec_est"] - cpu["rec_est"]).abs().amax(-1)[0]
                        <= 1e-2)[valid_pts].float().mean())
     pose_share = float(pose_ok.float().mean()) if pose_ok.numel() else 1.0
-    if any(min(n0, nt) >= 100 for *_, n0, nt in bad) or pose_share < 0.85 or rec_share < 0.99:
+    if pose_share < 0.85 or rec_share < 0.99:
         fail(f"test path instance ICP GPU vs CPU: {pose_share:.3f} of the (instance, frame) "
              f"poses and {rec_share:.4f} of the points within 1e-2; differing: {bad}")
+    # The instance ICP alone on the card's inputs (its points, labels and
+    # TPointNet poses), the card's result against the CPU's, each way held
+    # as the whole path was before (every slice of 100 or more points in
+    # both frames within 1e-2, at least 85 % of all slices): against the CPU
+    # computing the distances as K4 does (`difference_form`), no slice set
+    # aside; against the plain version, the slices that the CPU's two
+    # roundings put within 1e-4 of each other (one rounding of the distances
+    # decides the others). The smaller slices are held by the share alone:
+    # a first iteration with a few pairs within the threshold leaves their
+    # Kabsch covariance near rank 1 (tools/icp_spread.py), and the card's
+    # SVD and the CPU's then pick other rotations.
+    from pcaccumulation_tpu_torch.ops.icp import refine_instance_poses
+
+    if len(icp_calls.calls) != 1:
+        fail(f"test path: the instance ICP ran {len(icp_calls.calls)} times in one forward")
+    args, kw, card_pose = icp_calls.calls[0]
+    args = [x.cpu() if torch.is_tensor(x) else x for x in args]
+    plain_pose = refine_instance_poses(*args, **kw)
+    with difference_form():
+        diff_pose = refine_instance_poses(*args, **kw)
+    d_iso = (card_pose.cpu()[occ, 1:] - plain_pose[occ, 1:]).abs().amax((-1, -2))
+    d_k4 = (card_pose.cpu()[occ, 1:] - diff_pose[occ, 1:]).abs().amax((-1, -2))
+    spread = (diff_pose[occ, 1:] - plain_pose[occ, 1:]).abs().amax((-1, -2))
+    settled = spread <= 1e-4
+    big = torch.minimum(slice_pts[occ, :1], slice_pts[occ, 1:]) >= 100
+    iso_share = float((d_iso <= 1e-2).float().mean()) if d_iso.numel() else 1.0
+    k4_share = float((d_k4 <= 1e-2).float().mean()) if d_k4.numel() else 1.0
+    settled_share = float(settled.float().mean()) if settled.numel() else 1.0
+    iso_bad = [(int(occ[i]), int(j) + 1, round(float(d_k4[i, j]), 4),
+                round(float(d_iso[i, j]), 4), round(float(spread[i, j]), 4),
+                int(slice_pts[occ[i], 0]), int(slice_pts[occ[i], j + 1]))
+               for i, j in zip(*torch.nonzero((d_k4 > 1e-2) | (d_iso > 1e-2) | ~settled,
+                                              as_tuple=True))]
+    if (bool((big & (d_k4 > 1e-2)).any()) or k4_share < 0.85
+            or bool((settled & big & (d_iso > 1e-2)).any()) or iso_share < 0.85
+            or settled_share < 0.85):
+        fail(f"test path instance ICP alone, card vs CPU on the card's inputs: {k4_share:.3f} of "
+             f"the slices within 1e-2 of K4's arithmetic, {iso_share:.3f} of the plain "
+             f"version's, {settled_share:.3f} settled (the CPU's two roundings within 1e-4); "
+             f"(slot, frame, card vs K4's arithmetic, card vs plain, the CPU's two, points in "
+             f"frame 0, in frame t) of the others: {iso_bad}")
     # the clusterer on the CPU, on the card's inputs
     ccfg = cfg["cluster"]
     valid = bt["point_valid"][0].cpu()
@@ -1484,8 +1584,14 @@ def test_path_phase(port, cfg_base: dict, weights: dict, batches: list, smi: str
         + ", ".join(f"{k} {v:.2e} (tol {tol[k]})" for k, v in errs.items())
         + f"; FB decisions flipped {flips}; instance ICP: {int(pose_ok.sum())} of "
         f"{pose_ok.numel()} (instance, frame) poses within 1e-2, {rec_share:.6f} of the points' "
-        f"rec_est; the others (slot, frame, max |d pose|, points in frame 0, in frame t), all "
-        f"under 100 points: {bad}; clustering of {int(sel.sum())} moving points on the "
+        f"rec_est; the others (slot, frame, max |d pose|, points in frame 0, in frame t): "
+        f"{bad}; the instance ICP alone on the card's inputs: {k4_share:.4f} of the slices "
+        f"within 1e-2 of the CPU with K4's arithmetic and {iso_share:.4f} of the plain "
+        f"version, {settled_share:.4f} settled (the CPU's two roundings within 1e-4), every "
+        f"slice of 100 or more points within 1e-2 of K4's arithmetic and, settled, of the "
+        f"plain version; the others (slot, frame, card vs K4's arithmetic, card vs plain, the "
+        f"CPU's two, points in frame 0, in frame t): {iso_bad}; "
+        f"clustering of {int(sel.sum())} moving points on the "
         f"card vs the CPU: pair agreement {agree:.6f}, labels equal "
         f"{bool(torch.equal(labels[0].cpu(), lab_cpu))} ({time.perf_counter() - t0:.1f} s)")
     return counts["K4"], fwd_ms
@@ -1597,7 +1703,8 @@ def bf16_vs_f32(what: str, o16: dict, o32: dict, batch: dict, rec_share_min: flo
 def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     """The nuScenes preset (configs/nuscene.yaml: T=11, 288x288 BEV, 120,000
     points, 40,000 pillars, 48 instances, compute_dtype bfloat16) on the
-    card, seeded weights (`flax_init`; the TPointNet regressor's last layer
+    card, seeded weights (`build_model`'s, drawn as the JAX package's
+    `MotionNet.init` draws them; the TPointNet regressor's last layer
     about the identity and the Sinkhorn temperature at 0.1, as trained
     weights would have them), deterministic keypoints, the FB and MOS heads
     calibrated on the float32 model: the bf16 val forward (this slice's
@@ -1632,8 +1739,7 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     # sweeps: ~10,700 points and ~3,300 pillars in each)
     batches = [port.to_device(collate([s])) for s in default_scenes(cfg16, 2)]
     n_fwd = len(batches)
-    m32 = port.build_model(cfg32)
-    flax_init(m32, SEED)
+    m32 = port.build_model(cfg32, generator=torch.Generator().manual_seed(SEED))
     # a trained TPointNet regresses a residual motion; a seeded one regresses
     # a random rotation of each instance about its centroid, which a
     # bf16-sized change of its embeddings turns by metres at the instance's
@@ -2088,6 +2194,133 @@ def nuscenes_cli_train_phase(port) -> None:
     log(f"nuScenes CLI (configs/nuscene.yaml 4 2 --misc.mode=train --train.ckpt_backend=pickle "
         f"--train.max_epoch=2): one epoch of 2 micro-steps and a val step, checkpoints {ckpts}, "
         f"launches {got} ({time.perf_counter() - t0:.1f} s)")
+
+
+def init_statistics(model: torch.nn.Module) -> tuple[int, list]:
+    """Every leaf of a freshly built model against the distribution
+    `utils.weights.init_parameters` draws it from, as
+    tests/test_torch_init.py holds the JAX package's and the port's draws:
+    constants equal (biases 0, BatchNorm 1 / 0, alpha and beta -5, the zero
+    kernels); a drawn kernel of n elements with sample sd within 5 /
+    sqrt(2n) of `init_std` (relative), |mean| within 5 sd / sqrt(n), max |w|
+    at most the truncation 2 sd / 0.8796. Returns (leaves checked, the
+    failures)."""
+    from pcaccumulation_tpu_torch.models.layers import MaskedBatchNorm
+    from pcaccumulation_tpu_torch.utils.weights import TRUNC_STD, init_std
+
+    bad, n_leaves = [], 0
+
+    def const(name, t, value):
+        if not bool((t == value).all()):
+            bad.append(f"{name}: not {value}")
+
+    for mname, mod in model.named_modules():
+        if isinstance(mod, (torch.nn.Linear, torch.nn.modules.conv._ConvNd)):
+            sd, w = init_std(mod), mod.weight.detach().double().cpu().ravel()
+            if sd == 0.0:
+                const(f"{mname}.weight", w, 0.0)
+            else:
+                n = w.numel()
+                if abs(float(w.std(correction=0)) / sd - 1) > 5 / (2 * n) ** 0.5:
+                    bad.append(f"{mname}.weight: sd {float(w.std()):.5f} against {sd:.5f}")
+                if abs(float(w.mean())) > 5 * sd / n ** 0.5:
+                    bad.append(f"{mname}.weight: mean {float(w.mean()):.5f}")
+                if float(w.abs().max()) > 2 * sd / TRUNC_STD * (1 + 1e-6):
+                    bad.append(f"{mname}.weight: max |w| {float(w.abs().max()):.5f} over the cut")
+            if mod.bias is not None:
+                const(f"{mname}.bias", mod.bias, 0.0)
+        elif isinstance(mod, MaskedBatchNorm):
+            for leaf, value in (("weight", 1.0), ("bias", 0.0), ("running_mean", 0.0),
+                                ("running_var", 1.0)):
+                const(f"{mname}.{leaf}", getattr(mod, leaf), value)
+        n_leaves += len(list(mod.parameters(recurse=False)))
+    const("ego_motion_head.alpha", model.ego_motion_head.alpha, -5.0)
+    const("ego_motion_head.beta", model.ego_motion_head.beta, -5.0)
+    return n_leaves, bad
+
+
+def train_from_scratch_phase(port, smi: str) -> dict:
+    """Training from scratch as the convergence protocol runs it
+    (`tools/port_conv_runs.py`: configs/synthetic.yaml, B=4, iter_size 1,
+    seed 42, the tracked data/synthetic_conv), cut to 2 epochs:
+    - the model built on the card from `model_generator` (misc.seed 42):
+      bit-equal to the CPU build from the same seed, and every leaf's
+      statistics as the JAX package's initialisation has them
+      (`init_statistics`);
+    - the CLI (`--train.max_epoch=3`) in a temporary directory, the kernel
+      counts zeroed before and read after: K1 forward (pillar_encoder depth
+      - 1 per step) and gradient, K2 3 per step, no bf16 kernel and no K2
+      gradient; the epoch-2 train loss below epoch 1's, every val metric
+      finite."""
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.main import main as cli_main
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    data = os.path.join(repo, "data", "synthetic_conv")
+    cfg = load_config(os.path.join(repo, "configs", "synthetic.yaml"), ["--misc.seed=42"])
+    t0 = time.perf_counter()
+    model = port.build_model(cfg, generator=port.model_generator(cfg))
+    cpu = port.build_model(cfg, "cpu", port.model_generator(cfg))
+    differ = [k for k, v in cpu.state_dict().items() if not torch.equal(model.state_dict()[k].cpu(), v)]
+    n_leaves, bad = init_statistics(model)
+    if differ or bad:
+        fail(f"train from scratch: the card's initial weights differ from the CPU's at "
+             f"{differ[:5]}; leaf statistics: {bad[:10]}")
+    log(f"train from scratch: the model built on the card from misc.seed 42, bit-equal to the "
+        f"CPU build; {n_leaves} leaves within the JAX package's initial distributions "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del model, cpu
+
+    def n_lines(split):
+        with open(os.path.join(data, f"{split}_info.txt")) as f:
+            return sum(1 for line in f if line.strip())
+
+    epochs = 2
+    steps = n_lines("train") // 4 + n_lines("val")  # per epoch: train at B=4 (drop_last), val at 1
+    k1_per = cfg["pillar_encoder"]["depth"] - 1
+    want = {"K1": k1_per * steps * epochs, "K1-bf16": 0, "K2": 3 * steps * epochs, "K2-bf16": 0,
+            "K3": 0, "K3-bf16": 0, "K4": 0,
+            "K1 bwd": k1_per * (n_lines("train") // 4) * epochs, "K2 bwd": 0}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_from_scratch_")
+    cwd = os.getcwd()
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks_backward
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool_backward
+
+    try:
+        os.chdir(tmp)
+        zero_kernel_counts()
+        seg_pool_backward.launches = row_shift_blocks_backward.launches = 0
+        t0 = time.perf_counter()
+        rc = cli_main(["main", os.path.join(repo, "configs", "synthetic.yaml"), "4", "1",
+                       f"--train.max_epoch={epochs + 1}", "--misc.seed=42",
+                       f"--path.dataset_base={data}", "--misc.exp_name=from_scratch"])
+        got = dict(kernel_counts(), **{"K1 bwd": seg_pool_backward.launches,
+                                       "K2 bwd": row_shift_blocks_backward.launches})
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(tmp, "snapshot", "from_scratch", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f if line.strip()]
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    train = [r for r in recs if r["phase"] == "epoch_train"]
+    val = [r for r in recs if r["phase"] == "epoch_val"]
+    if rc != 0 or got != want or len(train) != epochs or len(val) != epochs:
+        fail(f"train from scratch: rc {rc}, launches {got} (want {want}), {len(train)} train and "
+             f"{len(val)} val epochs")
+    if not train[1]["loss"] < train[0]["loss"]:
+        fail(f"train from scratch: the epoch-2 train loss {train[1]['loss']} is not below epoch "
+             f"1's {train[0]['loss']}")
+    nonfinite = [k for r in val for k, v in r.items()
+                 if isinstance(v, float) and not np.isfinite(v)]
+    if nonfinite:
+        fail(f"train from scratch: non-finite val metrics {nonfinite}")
+    keys = ("loss", "mos_iou", "fb_iou", "ego_rot_error", "ego_trans_error", "inst_l2_error")
+    for name, rs in (("train", train), ("val", val)):
+        log(f"train from scratch, {name} by epoch: " + "; ".join(
+            ", ".join(f"{k} {r[k]:.4f}" for k in keys) for r in rs))
+    log(f"train from scratch (configs/synthetic.yaml 4 1 --misc.seed=42 --train.max_epoch=3, "
+        f"data/synthetic_conv): {epochs} epochs in {seconds:.1f} s, launches {got} on {smi}")
+    return {"seconds": seconds, "train_loss": [r["loss"] for r in train]}
 
 
 SERVE_LABELS = ("mos", "fb", "inst_labels", "time_idx", "points")
@@ -2800,8 +3033,7 @@ def determinism_phase(port, nus_state: dict, smi: str) -> dict:
         for name, path in (("default_f32", None), ("nuscenes_bf16", "configs/nuscene.yaml")):
             cfg = load_config(path, ["--misc.mode=train"])
             if path is None:
-                model = port.build_model(cfg)
-                flax_init(model, SEED)
+                model = port.build_model(cfg, generator=torch.Generator().manual_seed(SEED))
                 state = {k: v.clone() for k, v in model.state_dict().items()}
             else:
                 state = nus_state
@@ -3870,6 +4102,9 @@ def main() -> None:
         f"{pool_cpu[0]:.3e} ({pool_cpu[1]}) against the CPU, {pool_self[0]:.3e} "
         f"({pool_self[1]}) between two runs on the card ({time.perf_counter() - t0:.1f} s)")
 
+    # ---- 9. training from scratch: the JAX package's initialisation, 2 epochs --
+    scratch = train_from_scratch_phase(port, smi)
+
     kernels["seg_pool"] = dict(k1_rows["seg_pool"], launches=k1_launches)
     r, w, ctot = img.shape
     k, kn = torch.floor(shifts), torch.floor(-shifts)
@@ -3958,6 +4193,7 @@ def main() -> None:
         + " " + " ".join(f"nuscenes_train_{k} {v:.3f}" for k, v in remat.items())
         + " " + " ".join(f"train_{k} {v:.3f}" for k, v in det_ms.items())
         + f" nuscenes_ddp_world1_ms {ddp['ddp_ms']:.3f} nuscenes_plain_ms {ddp['plain_ms']:.3f} "
+        + f"train_from_scratch_s {scratch['seconds']:.3f} "
         + " ".join(f"{k} {v:.3f}" for k, v in mesh["ms"].items()) + " "
         + " ".join(f"prep_{c}_{p}_ms {r['total']:.3f}" for c, rows in host_prep.items()
                    for p, r in rows.items())

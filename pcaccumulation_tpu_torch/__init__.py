@@ -25,8 +25,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from pcaccumulation_tpu_torch.models.motionnet import MotionNet  # noqa: E402
+from pcaccumulation_tpu_torch.utils.weights import init_parameters  # noqa: E402
 
-__all__ = ["MotionNet", "build_model", "resolve_device", "to_device"]
+__all__ = ["MotionNet", "build_model", "model_generator", "resolve_device", "to_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,18 +38,33 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def build_model(cfg: dict, device=None) -> MotionNet:
+def build_model(cfg: dict, device=None, generator: torch.Generator | None = None) -> MotionNet:
     """A MotionNet for the (derived) config on the device, in eval mode.
 
-    Weights come from torch's default initialisation (seed it with
-    `torch.manual_seed`) or from `load_state_dict`. TF32 is switched off
+    Its weights are drawn on the CPU from `generator` (a CPU
+    `torch.Generator`; None: torch's default one) from the JAX package's
+    initial distributions (`utils.weights.init_parameters`): truncated
+    normal lecun kernels, xavier kernels in the UNets, zero biases, BatchNorm
+    at ones and zeros, the affinity's alpha and beta at -5. So the same
+    generator seed gives the same weights on every device and rank.
+    `model_generator(cfg)` is the one seeded from `misc.seed`. With a
+    generator, torch's default generator is left as it was. Reading a
+    checkpoint (`load_state_dict`) overwrites them. TF32 is switched off
     for matrix products and convolutions: the float32 config and the
     geometry are float32 throughout, as in the JAX package.
     """
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return MotionNet(cfg).to(dev).eval()
+    with torch.random.fork_rng(devices=[], enabled=generator is not None):
+        model = MotionNet(cfg)  # torch's own draws, overwritten below
+    return init_parameters(model, generator).to(dev).eval()
+
+
+def model_generator(cfg: dict) -> torch.Generator:
+    """The CPU generator a run draws its initial weights from, seeded from
+    `misc.seed`."""
+    return torch.Generator().manual_seed(int(cfg["misc"]["seed"]))
 
 
 def to_device(batch: dict, device=None) -> dict:

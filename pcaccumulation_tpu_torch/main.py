@@ -36,7 +36,7 @@ import sys
 
 import torch.distributed as dist
 
-from pcaccumulation_tpu_torch import build_model
+from pcaccumulation_tpu_torch import build_model, model_generator
 from pcaccumulation_tpu_torch.config import check_supported, load_config, save_config
 from pcaccumulation_tpu_torch.data.dataset import SceneDataset
 from pcaccumulation_tpu_torch.data.loader import make_loader
@@ -97,7 +97,7 @@ def main(argv: list[str]) -> int:
             save_config(cfg, os.path.join(save_dir, "config.json"))
             snapshot_source(save_dir)
 
-        model = build_model(cfg, device)
+        model = build_model(cfg, device, model_generator(cfg))
         if mode == "test":
             from pcaccumulation_tpu_torch.train.tester import Tester
 

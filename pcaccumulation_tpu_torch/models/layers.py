@@ -14,6 +14,11 @@ with a compute dtype takes one of the JAX package's two forms (see
 returns its input's dtype unless built with `keep_compute_dtype=True`. No
 autocast: the casts land where the JAX package's land. `compute_dtype=None`
 is the float32 model.
+
+Initialisation. Each Linear / Conv layer carries the init kind of the JAX
+parameter it stands for (`init`: "lecun", "xavier" or "zeros"), which
+`utils.weights.init_parameters` draws from; torch's own default
+initialisation is overwritten there.
 """
 
 from __future__ import annotations
@@ -37,9 +42,10 @@ class Linear(nn.Linear):
     """nn.Linear that computes in `compute_dtype` where it is set."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 compute_dtype: torch.dtype | None = None):
+                 compute_dtype: torch.dtype | None = None, init: str = "lecun"):
         super().__init__(in_features, out_features, bias)
         self.compute_dtype = compute_dtype
+        self.init_kind = init
 
     def forward(self, x):
         if self.compute_dtype is None:
@@ -57,9 +63,11 @@ class Conv2d(nn.Conv2d):
     and the convolution pads in W alone, so each band's output rows are
     those of the whole image's convolution."""
 
-    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kw):
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, init: str = "lecun",
+                 **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
+        self.init_kind = init
 
     def forward(self, x, halo=None):
         if halo is None:
@@ -79,9 +87,11 @@ class Conv2d(nn.Conv2d):
 class Conv3d(nn.Conv3d):
     """nn.Conv3d that computes in `compute_dtype` where it is set."""
 
-    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kw):
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, init: str = "lecun",
+                 **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
+        self.init_kind = init
 
     def forward(self, x):
         if self.compute_dtype is None:
@@ -93,9 +103,11 @@ class Conv3d(nn.Conv3d):
 class ConvTranspose2d(nn.ConvTranspose2d):
     """nn.ConvTranspose2d that computes in `compute_dtype` where it is set."""
 
-    def __init__(self, *args, compute_dtype: torch.dtype | None = None, **kw):
+    def __init__(self, *args, compute_dtype: torch.dtype | None = None, init: str = "lecun",
+                 **kw):
         super().__init__(*args, **kw)
         self.compute_dtype = compute_dtype
+        self.init_kind = init
 
     def forward(self, x):
         if self.compute_dtype is None:
@@ -129,8 +141,7 @@ class ResnetBlockFC(nn.Module):
         super().__init__()
         size_h = size_h or min(size_in, size_out)
         self.fc_0 = Linear(size_in, size_h, compute_dtype=compute_dtype)
-        self.fc_1 = Linear(size_h, size_out, compute_dtype=compute_dtype)
-        nn.init.zeros_(self.fc_1.weight)
+        self.fc_1 = Linear(size_h, size_out, compute_dtype=compute_dtype, init="zeros")
         self.shortcut = (Linear(size_in, size_out, bias=False, compute_dtype=compute_dtype)
                          if size_in != size_out else None)
 

@@ -1,6 +1,7 @@
 """2D UNet on BEV maps (the port of the JAX package's `models/unet.py`,
 plain form: the space-to-depth level 0 is the same function and is not
-ported). Tensors inside are NCHW; the public UNet takes and returns NHWC.
+ported). Every convolution is initialised xavier-normal, as the JAX
+package's (and the reference's) UNet. Tensors inside are NCHW; the public UNet takes and returns NHWC.
 With a compute dtype every convolution runs in it (models/layers.py).
 
 Band mode (`halo`, the spatial axis of `parallel/mesh.py`): the input is
@@ -26,8 +27,10 @@ class DownConv(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, pooling: bool = True,
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
+        self.conv1 = Conv2d(in_channels, out_channels, 3, padding=1,
+                            compute_dtype=compute_dtype, init="xavier")
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
+                            compute_dtype=compute_dtype, init="xavier")
         self.pooling = pooling
 
     def forward(self, x, halo=None):
@@ -43,10 +46,11 @@ class UpConv(nn.Module):
                  compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.upconv = ConvTranspose2d(in_channels, out_channels, 2, stride=2,
-                                      compute_dtype=compute_dtype)
+                                      compute_dtype=compute_dtype, init="xavier")
         self.conv1 = Conv2d(out_channels + skip_channels, out_channels, 3, padding=1,
-                            compute_dtype=compute_dtype)
-        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1, compute_dtype=compute_dtype)
+                            compute_dtype=compute_dtype, init="xavier")
+        self.conv2 = Conv2d(out_channels, out_channels, 3, padding=1,
+                            compute_dtype=compute_dtype, init="xavier")
 
     def forward(self, from_down, from_up, halo=None):
         x = torch.cat([self.upconv(from_up), from_down], dim=1)
@@ -101,7 +105,7 @@ class UNet(nn.Module):
         self.down_convs, self.up_convs = make_unet_convs(
             in_channels, down_widths, down_widths[-2::-1], compute_dtype)
         self.conv_final = Conv2d(start_filts, in_channels, 3, padding=1,
-                                 compute_dtype=compute_dtype)
+                                 compute_dtype=compute_dtype, init="xavier")
 
     def forward(self, x, halo=None):
         """x [N, H, W, C]; with `halo` a band of rows of height a multiple

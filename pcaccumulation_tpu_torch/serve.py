@@ -118,9 +118,7 @@ class Predictor:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_frames = cfg["voxel_generator"]["n_sweeps"]
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(0)
-            model = build_model(cfg, self.device)
+        model = build_model(cfg, self.device, torch.Generator().manual_seed(0))
         if state_dict is None and ckpt_path:
             state_dict = partial_load(read_checkpoint(ckpt_path)["model"], model.state_dict())
         if state_dict is not None:

@@ -18,12 +18,22 @@ With `stpn.n_band_layers` k < 4 the JAX STPN has 3x3 convs `post_conv{i}`
 (i = k..3) after its temporal max, which the reference model lacks (so the
 JAX package's `torch_convert.py` names none); the port names them
 `motionhead.post_conv{i}.weight` / `.bias` (a Conv2d).
+
+`init_parameters` draws a fresh model's weights from the distributions the
+JAX package's `MotionNet.init` draws them from.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn as nn
+
+# the standard deviation of a unit normal truncated to [-2, 2] (flax's
+# variance_scaling divides by it, so that the draw has the asked-for variance)
+TRUNC_STD = 0.87962566103423978
 
 
 def _tensor(a) -> torch.Tensor:
@@ -123,3 +133,137 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tens
     wr.bn(f"{pre}.regressor.4", al["reg_bn1"], al_stats["reg_bn1"])
     wr.linear(f"{pre}.regressor.6", al["reg_fc2"])
     return wr.sd
+
+
+def jax_fans(module: nn.Module) -> tuple[int, int]:
+    """(fan_in, fan_out) of a Linear / Conv layer as flax counts them on the
+    JAX kernel layout: [in, out] for Dense, [k..., in, out] for a
+    convolution and for a transpose convolution (torch's [in, out, k...]
+    weight of ConvTranspose2d has the fans the other way round from torch's
+    `_calculate_fan_in_and_fan_out`)."""
+    w = module.weight
+    if isinstance(module, nn.Linear):
+        return w.shape[1], w.shape[0]
+    field = math.prod(w.shape[2:])
+    if isinstance(module, nn.modules.conv._ConvTransposeNd):
+        return w.shape[0] * field, w.shape[1] * field
+    return w.shape[1] * field, w.shape[0] * field
+
+
+def init_std(module: nn.Module) -> float:
+    """The standard deviation of the kernel `init_parameters` draws for a
+    Linear / Conv layer (0 for a zero kernel): flax's
+    `variance_scaling(1, mode, "truncated_normal")` gives sqrt(1 / fan)."""
+    kind = getattr(module, "init_kind", "lecun")
+    if kind == "zeros":
+        return 0.0
+    fan_in, fan_out = jax_fans(module)
+    return math.sqrt(1.0 / (fan_in if kind == "lecun" else (fan_in + fan_out) / 2))
+
+
+def truncated_normal(shape, generator: torch.Generator | None) -> torch.Tensor:
+    """A float32 CPU draw of a unit normal truncated to [-2, 2], by the
+    inverse CDF as `jax.random.truncated_normal` draws it: uniform between
+    erf(-2 / sqrt 2) and erf(2 / sqrt 2), then sqrt 2 * erfinv, clipped to
+    the interval. (torch's `trunc_normal_` drew this way up to torch 2.11;
+    torch 2.13's samples by rejection, ~10x as long on the CPU.)"""
+    edge = math.erf(2.0 / math.sqrt(2.0))
+    draw = torch.empty(shape, dtype=torch.float32).uniform_(-edge, edge, generator=generator)
+    return draw.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator | None = None) -> nn.Module:
+    """Draw every parameter of a port model as the JAX package's
+    `MotionNet.init` draws its counterpart; `generator` is a CPU
+    `torch.Generator` (None: torch's default one). Kernels are
+    `truncated_normal * sqrt(1 / fan) / TRUNC_STD`, fan_in
+    ("lecun", flax's `lecun_normal`) or the mean of fan_in and fan_out
+    ("xavier", `xavier_normal`) from `jax_fans`; biases are zero. The
+    buffers are reset (running mean 0, var 1). Raises if a parameter has no
+    rule. Each port name (`*` for indices) with its JAX leaf, initialiser
+    and source line (files of `pcaccumulation_tpu/models/`):
+
+    pillar_encoder.fc_pos.weight, pillar_encoder.fc_c.weight
+        fc_pos, fc_c kernel: lecun; pillar_encoder.py:299,306 (Dense)
+    pillar_encoder.blocks.*.fc_0.weight, .shortcut.weight
+        block*/fc_0, shortcut: lecun; layers.py:49,55 (Dense)
+    pillar_encoder.blocks.*.fc_1.weight
+        block*/fc_1 kernel: zeros; layers.py:50
+    unet.{down,up}_convs.*.conv{1,2}.weight, unet.conv_final.weight
+        unet down*/up* conv1, conv2, conv_final: xavier; unet.py:27 (conv3x3),
+        at the s2d level 0 unet.py:43,55 (S2DConv3x3)
+    unet.up_convs.*.upconv.weight
+        up*/upconv, (2, 2, cin, cout): xavier; unet.py:171 (ConvTranspose),
+        s2d unet.py:91
+    semseg_head.seg_head.{0,3}.weight
+        semseg_head/conv0, conv1: lecun; layers.py:441,449 (Conv), padded
+        layers.py:219, s2d layers.py:356,305
+    ego_feats_head.seg_head.{0,3}.weight
+        ego_feats_head/conv0, conv1: lecun; layers.py:441,449, sparse
+        layers.py:428,378, folded layers.py:147
+    *.seg_head.1.weight, .bias (the 2-D heads' BatchNorm)
+        */bn scale, bias: ones, zeros; flax BatchNorm (layers.py:442,189),
+        s2d layers.py:255-256
+    ego_motion_head.alpha, .beta
+        alpha, beta: -5; egomotion.py:166-167
+    motionhead.init_conv.{0,2,4,6}.weight
+        motionhead/init_conv{i}, (3, 3, 3, c, c): lecun; stpn.py:45
+        (TemporalBandedConv)
+    motionhead.post_conv{i}.weight
+        motionhead/post_conv{i}: lecun; stpn.py:129 (Conv)
+    motionhead.{down,up}_convs.*.weight
+        motionhead/unet down*/up*: xavier; unet.py:27,171 (UNetCustomWidths)
+    motionhead.positional_encoding.{0,2}.weight, motionhead.final_proj.0.weight
+        positional_encoding/fc*, final_proj: lecun; stpn.py:145 with
+        layers.py:30 (MLP Dense), stpn.py:149 (Dense)
+    motionhead.{mos_seg,offset_head}.seg_head.{0,3}.weight
+        */fc0, fc1: lecun; layers.py:108,111 (Dense)
+    motionhead.{mos_seg,offset_head}.seg_head.1.weight, .bias
+        */bn scale, bias: ones, zeros; layers.py:76-77
+    reconstructor.alignment.{motion,geo,pos}_embed.*.weight
+        alignment/*_embed/fc*: lecun; tpointnet.py:138,139,149, layers.py:30
+    reconstructor.alignment.regressor.{0,3,6}.weight
+        reg_fc0, reg_fc1, reg_fc2: lecun; tpointnet.py:197,200,203 (Dense)
+    reconstructor.alignment.regressor.{1,4}.weight, .bias
+        reg_bn0, reg_bn1 scale, bias: ones, zeros; tpointnet.py:198,201,
+        layers.py:76-77
+    every .bias of a Linear / Conv
+        bias: zeros; flax's default and the `self.param` lines above
+
+    The JAX package's TPU forms keep the parameter shape of the plain
+    layer the port has (BlockDiagConv: one [3, 3, cin, cout] kernel per
+    frame, TemporalBandedConv: [3, 3, 3, c, c], the s2d convolutions: the
+    narrow [3, 3, cin, cout] kernel), so the fans are those of the port's
+    weight.
+    """
+    from pcaccumulation_tpu_torch.models.egomotion import EgoMotionHead
+    from pcaccumulation_tpu_torch.models.layers import MaskedBatchNorm
+
+    done = set()
+    for module in model.modules():
+        if isinstance(module, (nn.Linear, nn.modules.conv._ConvNd)):
+            std = init_std(module)
+            if std == 0.0:
+                module.weight.zero_()
+            else:
+                module.weight.copy_(truncated_normal(module.weight.shape, generator)
+                                    .mul_(std / TRUNC_STD))
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, MaskedBatchNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+            module.num_batches_tracked.zero_()
+        elif isinstance(module, EgoMotionHead):
+            module.alpha.fill_(-5.0)
+            module.beta.fill_(-5.0)
+        else:
+            continue
+        done.update(id(p) for p in module.parameters(recurse=False))
+    missed = [n for n, p in model.named_parameters() if id(p) not in done]
+    if missed:
+        raise ValueError(f"no initialisation rule for {missed}")
+    return model

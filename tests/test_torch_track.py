@@ -109,8 +109,8 @@ def test_track_scene_and_empty_tracker_match_jax():
 @pytest.fixture(scope="module")
 def predictor():
     """tests/test_track_pipeline.py's predictor on the port: configs/
-    synthetic.yaml cut as there, torch's seeded initialisation with oracle
-    heads (every point foreground and moving, zero offsets), so that the
+    synthetic.yaml cut as there, the Predictor's seeded initialisation (the
+    JAX package's distributions) with oracle heads (every point foreground and moving, zero offsets), so that the
     instances are the clusterer's geometric clusters."""
     from pcaccumulation_tpu_torch.config import load_config
     from pcaccumulation_tpu_torch.serve import Predictor
