@@ -765,6 +765,70 @@ def bf16_kernel_phase(dev, gen) -> dict:
     return rows
 
 
+def waymo_kernel_phase(dev, gen) -> dict:
+    """K1's and K2's bf16 kernels at the Waymo preset's shapes
+    (configs/waymo.yaml: T=5, 90,000 points, 288 x 288 BEV): K1 at [90000,
+    32] (the pillar encoder's rows at B=1) and K2 at [288, 288, 160] nb=5
+    (the warp's canvas of 5 frames of 32 channels), each against its plain
+    version on the same bf16 inputs (`k1_bf16_check`, `k2_bf16_check`) and
+    timed through the wrapper beside the plain version, the bound and, for
+    K2, `F.grid_sample` on the same bf16 canvas. Returns the two rows of the
+    `kernels` line (launches None until the Waymo path's counts are read)."""
+    from pcaccumulation_tpu_torch.kernels.row_shift import row_shift_blocks, row_shift_blocks_plain
+    from pcaccumulation_tpu_torch.kernels.segscan import seg_pool, seg_pool_plain
+
+    bf = torch.bfloat16
+    x, ids = k1_inputs(gen, dev, n=90000)
+    xb = x.to(bf)
+    k1_err = k1_bf16_check("Waymo [90000, 32]", xb, ids)
+    nb = 5
+    img32, shifts = k2_inputs(gen, dev, nb, 32)
+    img = img32.to(bf)
+    _, k2_err = k2_bf16_check("K2 bf16 Waymo [288, 288, 160] nb=5", img, shifts, nb,
+                              row_shift_blocks)
+    n, c = xb.shape
+    k1_bound, k1_by = bound_ms(2 * n * c * 2 + n * 4, n * c)
+    r, w, ctot = img.shape
+    k = torch.floor(shifts)
+    ki, fr = k.clamp(-w, w).to(torch.int32), (shifts - k).float()
+    k2_bound, k2_by = bound_ms(2 * img.numel() * 2 + shifts.numel() * 4, 3 * img.numel())
+    img_g = img.reshape(r, w, nb, ctot // nb).permute(0, 2, 3, 1).reshape(r * nb, ctot // nb, 1, w)
+    xs = (torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+          + (ki.float() + fr).reshape(-1, 1))
+    grid = torch.stack([(2 * xs + 1) / w - 1, torch.zeros_like(xs)], -1)[:, None].to(bf)
+    rows = {
+        "seg_pool_bf16_waymo": {
+            "name": "seg_pool_bf16_waymo", "route": "cuda",
+            "source": "pcaccumulation_tpu_torch/csrc/segscan.cu",
+            "replaces": "pcaccumulation_tpu/kernels/segscan.py:153",
+            "launches": None, "max_abs_err": k1_err[0],
+            "ms": cuda_ms(lambda: seg_pool(xb, ids, "max"), iters=200),
+            "plain_ms": cuda_ms(lambda: seg_pool_plain(xb, ids, "max")),
+            "bound_ms": k1_bound, "bound_by": k1_by,
+            "library_ms": None,  # no single PyTorch call reduces and broadcasts back
+        },
+        "row_shift_blocks_bf16_waymo": {
+            "name": "row_shift_blocks_bf16_waymo", "route": "cuda",
+            "source": "pcaccumulation_tpu_torch/csrc/row_shift.cu",
+            "replaces": "pcaccumulation_tpu/ops/bilinear.py:387",
+            "launches": None, "max_abs_err": k2_err,
+            "ms": cuda_ms(lambda: row_shift_blocks(img, shifts, nb)),
+            "plain_ms": cuda_ms(lambda: row_shift_blocks_plain(img, ki, fr, nb)),
+            "bound_ms": k2_bound, "bound_by": k2_by,
+            "library_ms": cuda_ms(lambda: torch.nn.functional.grid_sample(
+                img_g, grid, mode="bilinear", padding_mode="zeros", align_corners=False)),
+        },
+    }
+    log(f"Waymo shapes: K1 bf16 [90000, 32] max torch.equal to the plain version, sum max abs "
+        f"err {k1_err[1]:.2e} (tol 1 bf16 ulp + 1e-5 of the segment's sum|x|); K2 bf16 [288, "
+        f"288, 160] nb=5 max abs err {k2_err:.2e} (tol 1 bf16 ulp)")
+    for key, row in rows.items():
+        log(f"{key}: {row['ms']:.4f} ms through the wrapper; bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.3f} of it; plain "
+            f"{row['plain_ms']:.4f} ms; library {row['library_ms']}")
+    return rows
+
+
 def k1_bf16_grad_check(what: str, x: torch.Tensor, ids: torch.Tensor,
                        g: torch.Tensor) -> tuple[float, int]:
     """K1's bf16 gradient kernel (max) against its plain version on the
@@ -1642,6 +1706,158 @@ def tester_phase(port) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+JAX_FIXTURE = os.path.join("tests", "data", "jax_orbax_tiny")
+# biases directly before a train-mode BatchNorm: zero in exact arithmetic,
+# cancellation residue here (tests/test_torch_parallel.py sets them aside)
+STRUCTURAL_ZERO = ("seg_head.0.bias", "regressor.0.bias", "regressor.3.bias")
+
+
+def val_against(what: str, got: dict, want: dict, pillar_valid: torch.Tensor) -> dict:
+    """A val forward (`got`) against a reference's outputs (`want`, tensors
+    or arrays) on the same weights and batch: `VAL_TOL` per output, MOS and
+    offsets on the rows whose FB decision agrees (a flipped FB decision
+    changes which rows are decoded), at most 1 in 1,000 pillar FB
+    decisions flipped. Returns the errors."""
+    got = {k: v.detach().float().cpu() for k, v in got.items() if torch.is_tensor(v)}
+    want = {k: torch.as_tensor(np.asarray(v)).float() for k, v in want.items()
+            if torch.is_tensor(v) or isinstance(v, np.ndarray)}
+    pv = pillar_valid.cpu()
+    est_g = got["fb_logit_pillar"][..., 1] > got["fb_logit_pillar"][..., 0]
+    est_w = want["fb_logit_pillar"][..., 1] > want["fb_logit_pillar"][..., 0]
+    flips = int((est_g != est_w)[pv].sum())
+    same_fg = got["fb_mask"] == want["fb_mask"]
+    errs = {}
+    for key, tol in VAL_TOL.items():
+        if tuple(got[key].shape) != tuple(want[key].shape):
+            fail(f"{what} {key}: shape {tuple(got[key].shape)} != {tuple(want[key].shape)}")
+        d = (got[key] - want[key]).abs()
+        if key in ("mos_est", "offset_est"):
+            d = d[same_fg]
+        errs[key] = float(d.max()) if d.numel() else 0.0
+        if errs[key] > tol:
+            fail(f"{what} {key}: max abs err {errs[key]:.3e} > {tol}")
+    if flips > max(1, int(pv.sum()) // 1000):
+        fail(f"{what}: {flips} pillar FB decisions differ")
+    errs.update(fb_flips=flips, pillars=int(pv.sum()))
+    return errs
+
+
+def jax_fixture_phase(port, dev="cuda") -> dict:
+    """A JAX training run carried into the port on the card, from the
+    tracked orbax checkpoint `tests/data/jax_orbax_tiny/`
+    (tools/make_jax_orbax_fixture.py: the JAX package's Trainer at the tiny
+    training config after 2 updates and one further micro-step; its
+    `expected.npz`: the batches, the JAX val forward, the parameters after
+    the JAX Trainer's next micro-step):
+    - `read_checkpoint` reads it (no jax, orbax or tensorstore), timed;
+    - the Tester (`misc.pretrain`) and the Predictor (`ckpt_path`) on `dev`
+      load the same weights; the val forward (eval BN) of the Tester's
+      model on batch 0 against the JAX package's (`val_against`), the
+      Predictor's model the same bits;
+    - `Trainer.load_pretrain` (`misc.pretrain`) resumes Adam's count 2,
+      mini_step 1 and the accumulator; one `train_step` on batch 1 ends the
+      accumulation and applies the third update: every leaf the JAX update
+      changed is held to the JAX package's next parameters by
+      `leaf_criterion`, and so is its update (the parameters' change); the
+      leaves it left alone stay equal bit for bit.
+    Returns the times."""
+    import copy
+
+    from pcaccumulation_tpu_torch.serve import Predictor
+    from pcaccumulation_tpu_torch.train.tester import Tester
+    from pcaccumulation_tpu_torch.train.trainer import Trainer
+    from pcaccumulation_tpu_torch.utils.checkpoint import read_checkpoint
+
+    t0 = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), JAX_FIXTURE)
+    ckpt = os.path.join(root, "model_latest.ckpt")
+    with open(os.path.join(root, "cfg.json")) as f:
+        cfg = json.load(f)
+    exp = np.load(os.path.join(root, "expected.npz"))
+    part = {p: {k.split("/", 1)[1]: exp[k] for k in exp.files if k.startswith(p + "/")}
+            for p in ("batch0", "batch1", "val", "next")}
+    t1 = time.perf_counter()
+    state = read_checkpoint(ckpt)
+    read_s = time.perf_counter() - t1
+    loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "orbax", "tensorstore",
+                                                             "zstandard", "optax", "flax")]
+    if loaded:
+        fail(f"JAX fixture: reading it imported {loaded}")
+    opt = state["optimizer"]
+    if (opt["count"], opt["mini_step"], opt["n_skipped"]) != (2, 1, 0):
+        fail(f"JAX fixture: optimizer state count {opt['count']}, mini_step "
+             f"{opt['mini_step']}, skipped {opt['n_skipped']}; want 2, 1, 0")
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_fixture_")
+    try:
+        cfg_t = copy.deepcopy(cfg)
+        cfg_t["misc"].update(pretrain=ckpt, mode="test")
+        tester = Tester(cfg_t, port.build_model(cfg_t, device=dev), save_dir=run_dir,
+                        device=dev, results_dir=os.path.join(run_dir, "results"))
+        pred = Predictor(cfg, ckpt_path=ckpt, device=dev)
+        b0 = port.to_device(part["batch0"], dev)
+        with torch.no_grad():
+            out = tester.model.eval()(b0, mode="val")
+            out_p = pred.model.eval()(b0, mode="val")
+        for k, v in out.items():
+            if torch.is_tensor(v) and not torch.equal(v, out_p[k]):
+                fail(f"JAX fixture: the Predictor's val forward differs from the Tester's at {k}")
+        errs = val_against("JAX fixture val forward against the JAX package's", out,
+                           part["val"], b0["pillar_valid"])
+
+        cfg_r = copy.deepcopy(cfg)
+        cfg_r["misc"].update(pretrain=ckpt, mode="train")
+        tr = Trainer(cfg_r, port.build_model(cfg_r, device=dev), {"train": [None] * 2},
+                     save_dir=os.path.join(run_dir, "train"), device=dev)
+        with open(os.path.join(run_dir, "train", "log")) as f:
+            if "reinitialised" in f.read():
+                fail("JAX fixture: the Trainer reinitialised the optimizer")
+        names = [n for n, _ in tr.model.named_parameters()]
+        before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+        if (tr.optimizer.count, tr.optimizer.mini_step, tr.start_epoch) != (2, 1, 2):
+            fail(f"JAX fixture: resumed count {tr.optimizer.count}, mini_step "
+                 f"{tr.optimizer.mini_step}, start epoch {tr.start_epoch}")
+        t1 = time.perf_counter()
+        stats = tr.train_step(port.to_device(part["batch1"], dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        if (tr.optimizer.count, tr.optimizer.mini_step) != (3, 0):
+            fail(f"JAX fixture: after the step count {tr.optimizer.count}, mini_step "
+                 f"{tr.optimizer.mini_step}; want 3, 0")
+        after = {n: p.detach().cpu() for n, p in tr.model.named_parameters()}
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    # biases directly before a train-mode BatchNorm take a gradient that is
+    # zero in exact arithmetic (cancellation residue): set aside, as in
+    # tests/test_torch_parallel.py
+    residue = [n for n in part["next"] if n.endswith(STRUCTURAL_ZERO)]
+    moved = [n for n in names if n in part["next"] and n not in residue]
+    still = [n for n in names if n not in part["next"]]
+    for n in still:
+        if not torch.equal(after[n], before[n].cpu()):
+            fail(f"JAX fixture: {n}, which the JAX update left alone, moved")
+    want = {n: torch.from_numpy(part["next"][n]).reshape(after[n].shape) for n in moved}
+    p_crit = leaf_criterion(want, {n: after[n] for n in moved},
+                            what="JAX fixture parameters after the update, port vs JAX")
+    u_crit = leaf_criterion({n: want[n] - before[n].cpu() for n in moved},
+                            {n: after[n] - before[n].cpu() for n in moved},
+                            what="JAX fixture update, port vs JAX")
+    log(f"JAX fixture ({JAX_FIXTURE}, the JAX package's orbax save of its Trainer after 2 "
+        f"updates and a micro-step): read_checkpoint {read_s:.3f} s (no jax, orbax or "
+        f"tensorstore imported); the Tester and the Predictor on {dev}: the same weights, "
+        f"val forward against the JAX package's " + ", ".join(
+            f"{k} {errs[k]:.2e} (tol {t})" for k, t in VAL_TOL.items())
+        + f", FB decisions flipped {errs['fb_flips']} of {errs['pillars']}; the Trainer "
+        f"resumed Adam's count 2 and mini_step 1, its step on batch 1 (loss "
+        f"{float(stats['loss']):.6f}, {step_s:.3f} s) applied update 3: {len(moved)} leaves "
+        f"the JAX update moved, parameters worst {p_crit[4]} rel-norm {p_crit[2]:.3e}, update "
+        f"worst {u_crit[4]} rel-norm {u_crit[2]:.3e} cosine {u_crit[3]:.6f} ({u_crit[0]} "
+        f"checked, {u_crit[1]} below the noise floor); {len(still)} leaves it left alone "
+        f"unchanged; set aside (BatchNorm-cancelled biases) {residue} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return {"fixture_read_ms": 1e3 * read_s, "fixture_step_ms": 1e3 * step_s}
+
+
 def bf16_vs_f32(what: str, o16: dict, o32: dict, batch: dict, rec_share_min: float,
                 against_f32: bool = True) -> dict:
     """A bf16 forward against a reference forward (the float32 one, or
@@ -1700,20 +1916,23 @@ def bf16_vs_f32(what: str, o16: dict, o32: dict, batch: dict, rec_share_min: flo
     return m
 
 
-def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
-    """The nuScenes preset (configs/nuscene.yaml: T=11, 288x288 BEV, 120,000
-    points, 40,000 pillars, 48 instances, compute_dtype bfloat16) on the
-    card, seeded weights (`build_model`'s, drawn as the JAX package's
+def preset_phase(port, smi: str, preset: str = "configs/nuscene.yaml",
+                 preset_name: str = "nuScenes") -> tuple[dict, dict, dict]:
+    """A bf16 preset on the card: `preset` is configs/nuscene.yaml (T=11,
+    288x288 BEV, 120,000 points, 40,000 pillars, 48 instances) or
+    configs/waymo.yaml (T=5, 288x288 BEV, 90,000 points, 30,000 pillars,
+    48 instances), compute_dtype bfloat16, `preset_name` its name in the log;
+    seeded weights (`build_model`'s, drawn as the JAX package's
     `MotionNet.init` draws them; the TPointNet regressor's last layer
     about the identity and the Sinkhorn temperature at 0.1, as trained
     weights would have them), deterministic keypoints, the FB and MOS heads
-    calibrated on the float32 model: the bf16 val forward (this slice's
-    main path, counts zeroed before and read after: K1 and K2 in bf16, no
-    float32 kernel) and the test forward with both ICPs at 50 iterations,
-    each held against the float32 forward on the same weights and batch
+    calibrated on the float32 model: the bf16 val forward (a main path,
+    counts zeroed before and read after: K1 and K2 in bf16, no float32
+    kernel) and the test forward with both ICPs at 50 iterations, each
+    held against the float32 forward on the same weights and batch
     (`bf16_vs_f32`), the val forward also against the bf16 forward on the
-    CPU, and timed beside the float32 ones. Returns (the bf16 launch counts of the val path,
-    the times, the float32 model's weights)."""
+    CPU, and timed beside the float32 ones. Returns (the bf16 launch counts
+    of the val path, the times, the float32 model's weights)."""
     import copy
     import math
 
@@ -1729,14 +1948,14 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     )
 
     t0 = time.perf_counter()
-    cfg16 = load_config("configs/nuscene.yaml",
+    cfg16 = load_config(preset,
                         ["--misc.mode=val", "--train.ckpt_backend=pickle"])
     check_supported(cfg16)
     cfg16["pose_estimation"]["deterministic_sampling"] = True
     cfg32 = copy.deepcopy(cfg16)
     cfg32["precision"]["compute_dtype"] = "float32"
-    # scenes that fill the preset in all 11 sweeps (`default_scenes` at 11
-    # sweeps: ~10,700 points and ~3,300 pillars in each)
+    # scenes that fill the preset in all its sweeps (`default_scenes`; at 11
+    # sweeps ~10,700 points and ~3,300 pillars in each)
     batches = [port.to_device(collate([s])) for s in default_scenes(cfg16, 2)]
     n_fwd = len(batches)
     m32 = port.build_model(cfg32, generator=torch.Generator().manual_seed(SEED))
@@ -1756,7 +1975,7 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     fg_share, mov_share = calibrate_heads(m32, batches[0])
     m16 = port.build_model(cfg16)
     m16.load_state_dict(m32.state_dict())
-    log(f"nuScenes: {n_fwd} scenes, valid points "
+    log(f"{preset_name}: {n_fwd} scenes, valid points "
         f"{[int(b['point_valid'].sum()) for b in batches]} of {cfg16['capacity']['max_points']}, "
         f"valid pillars {[int(b['pillar_valid'].sum()) for b in batches]} of "
         f"{cfg16['capacity']['max_pillars']}; heads calibrated to FG {fg_share:.4f}, moving "
@@ -1782,14 +2001,14 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     want = {"K1": 0, "K1-bf16": k1_per * n_fwd, "K2": 0, "K2-bf16": 3 * n_fwd, "K3": 0,
             "K3-bf16": 0, "K4": 0}
     if val_counts != want:
-        fail(f"nuScenes bf16 val forward launched {val_counts}, want {want}")
+        fail(f"{preset_name} bf16 val forward launched {val_counts}, want {want}")
     with torch.no_grad():
         val32 = [m32(bt) for bt in batches]
     for i, out in enumerate(val16):
         for key, x in out.items():
             if torch.is_tensor(x) and x.is_floating_point() and not bool(torch.isfinite(x).all()):
-                fail(f"nuScenes bf16 val forward, scene {i}: non-finite {key}")
-    val_m = [bf16_vs_f32("nuScenes val bf16 vs float32", a, b, bt, 1.0)
+                fail(f"{preset_name} bf16 val forward, scene {i}: non-finite {key}")
+    val_m = [bf16_vs_f32(f"{preset_name} val bf16 vs float32", a, b, bt, 1.0)
              for a, b, bt in zip(val16, val32, batches)]
     # the same bf16 function on the CPU (its plain kernels), scene 0
     t1 = time.perf_counter()
@@ -1797,16 +2016,19 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     cpu16.load_state_dict({k: x.cpu() for k, x in m32.state_dict().items()})
     with torch.no_grad():
         ref = cpu16({k: x.cpu() for k, x in batches[0].items()})
-    cpu_m = bf16_vs_f32("nuScenes val bf16 card vs CPU", val16[0], ref, batches[0], 1.0,
+    cpu_m = bf16_vs_f32(f"{preset_name} val bf16 card vs CPU", val16[0], ref, batches[0], 1.0,
                         against_f32=False)
-    log(f"nuScenes bf16 val forward, card vs CPU (the same function, summed in other orders; "
+    log(f"{preset_name} bf16 val forward, card vs CPU (the same function, summed in other orders; "
         f"{time.perf_counter() - t1:.1f} s on the CPU): {cpu_m}")
     from_id = float((val16[0]["ego_motion_est"][:, 1:].cpu()
                      - torch.eye(4)).abs().amax((-1, -2)).min())
     if from_id < 1e-4:
-        fail("nuScenes val: a bf16 ego pose of frames 1..T-1 is the identity; nothing compared")
-    log(f"nuScenes bf16 val forward: {n_fwd} forwards launched {val_counts}; against the float32 "
-        f"forward on the card (same weights and batch): {val_m}; ego poses of frames 1..10 at "
+        fail(f"{preset_name} val: a bf16 ego pose of frames 1..T-1 is the identity; nothing "
+             "compared")
+    log(f"{preset_name} bf16 val forward: {n_fwd} forwards launched {val_counts}; against the "
+        f"float32 "
+        f"forward on the card (same weights and batch): {val_m}; ego poses of frames "
+        f"1..{cfg16['data']['n_frames'] - 1} at "
         f"least {from_id:.4f} from the identity")
 
     times = {}
@@ -1839,19 +2061,19 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     want = {"K1": 0, "K1-bf16": k1_per * n_fwd, "K2": 0, "K2-bf16": 3 * n_fwd, "K3": 0,
             "K3-bf16": 0, "K4": 100 * n_fwd}
     if test_counts != want:
-        fail(f"nuScenes bf16 test forward launched {test_counts}, want {want}")
+        fail(f"{preset_name} bf16 test forward launched {test_counts}, want {want}")
     n_inst = []
     for i, out in enumerate(test16):
         for key, x in out.items():
             if torch.is_tensor(x) and x.is_floating_point() and not bool(torch.isfinite(x).all()):
-                fail(f"nuScenes bf16 test forward, scene {i}: non-finite {key}")
+                fail(f"{preset_name} bf16 test forward, scene {i}: non-finite {key}")
         labels = out["inst_labels_est"][0]
         slots = torch.unique(labels[labels > 0])
         dets = torch.cat([torch.linalg.det(out["ego_motion_est"][..., :3, :3].double()).reshape(-1),
                           torch.linalg.det(out["inst_pose_est"][0, slots][..., :3, :3].double())
                           .reshape(-1)])
         if float((dets - 1).abs().max()) > 1e-4:
-            fail(f"nuScenes bf16 test forward, scene {i}: a pose is not a rotation")
+            fail(f"{preset_name} bf16 test forward, scene {i}: a pose is not a rotation")
         n_inst.append(len(slots))
     # held against float32 at 3 ICP iterations, as the default config's test
     # path is held against the CPU: 50 iterations from starting poses 1e-2
@@ -1870,15 +2092,15 @@ def nuscenes_phase(port, smi: str) -> tuple[dict, dict, dict]:
     # the instance ICP starts from the TPointNet's poses and moves a few
     # small slices far on a bf16-sized nudge (the JAX package's own
     # bf16-vs-float32 drift does the same, tests/test_torch_precision.py)
-    test_m = [bf16_vs_f32("nuScenes test bf16 vs float32", a, b, bt, 0.99)
+    test_m = [bf16_vs_f32(f"{preset_name} test bf16 vs float32", a, b, bt, 0.99)
               for a, b, bt in zip(test16_inj, test32, batches)]
-    log(f"nuScenes bf16 test forward (both ICPs, 50 iterations): {n_fwd} forwards launched "
+    log(f"{preset_name} bf16 test forward (both ICPs, 50 iterations): {n_fwd} forwards launched "
         f"{test_counts}; finite, rigid poses; instances found {n_inst}. At 3 ICP iterations "
         f"against the float32 forward: clustering pair agreement {agree}; with the float32 "
         f"run's labels injected: {test_m}")
     for name, model in (("test_f32", t32), ("test_bf16", t16)):
         times[name] = forward_ms(model, batches, 3, mode="test")
-    log("nuScenes forwards (B=1, CUDA events, median ms and all times): " + "; ".join(
+    log(f"{preset_name} forwards (B=1, CUDA events, median ms and all times): " + "; ".join(
         f"{k} {v[0]:.3f} ({', '.join(f'{t:.3f}' for t in v[1])})" for k, v in times.items())
         + f"; peak memory of one val forward bf16 {peak16:.3f} GiB, float32 {peak32:.3f} GiB; "
         f"on {smi} ({time.perf_counter() - t0:.1f} s)")
@@ -1964,12 +2186,15 @@ def bf16_leaf_criterion(g16: dict, g32: dict, names: list,
     return checked, noise, worst[0], worst[1], worst[2]
 
 
-def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
-    """The nuScenes preset's training micro-step in bf16 (configs/nuscene.yaml,
-    `Trainer.train_step` at B=4 and iter_size 2, train-mode BN, the random
-    keypoint draw) on four synthetic 11-sweep scenes (`default_scenes`) and
-    the nuScenes phase's weights (`state`: flax's init, calibrated heads):
-    warm-up micro-steps, then timed ones with the kernels' counts zeroed
+def preset_train_phase(port, state: dict, smi: str, preset: str = "configs/nuscene.yaml",
+                       preset_name: str = "nuScenes", steps: tuple = ((2, 4), (1, 2))) -> dict:
+    """A bf16 preset's training micro-step (`preset`, configs/nuscene.yaml or
+    configs/waymo.yaml, named `preset_name` in the log; `Trainer.train_step`
+    at B=4 and iter_size 2, train-mode BN, the random keypoint draw) on four
+    synthetic scenes of the preset's sweeps (`default_scenes`) and the
+    preset phase's weights (`state`: flax's init, calibrated heads):
+    warm-up micro-steps, then timed ones (`steps`: (warm-up, timed) in bf16,
+    then in float32) with the kernels' counts zeroed
     before and read after (per micro-step K1-bf16 forward and gradient
     `pillar_encoder.depth - 1` times each, K2-bf16 forward 3 times, no K2
     gradient, no float32 K1 or K2), finite loss terms, Adam's count, peak
@@ -1996,7 +2221,7 @@ def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
     from pcaccumulation_tpu_torch.train.trainer import Trainer
 
     t0 = time.perf_counter()
-    cfg16 = load_config("configs/nuscene.yaml",
+    cfg16 = load_config(preset,
                         ["--misc.mode=train", "--train.ckpt_backend=pickle"])
     check_supported(cfg16)
     cfg32 = copy.deepcopy(cfg16)
@@ -2005,7 +2230,7 @@ def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
     k1_per = cfg16["pillar_encoder"]["depth"] - 1
     scenes = default_scenes(cfg16, bsz)
     batch = port.to_device(collate(scenes))
-    log(f"nuScenes train batch: B={bsz}, valid points "
+    log(f"{preset_name} train batch: B={bsz}, valid points "
         f"{[int(x) for x in batch['point_valid'].sum(1)]}, valid pillars "
         f"{[int(x) for x in batch['pillar_valid'].sum(1)]} ({time.perf_counter() - t0:.1f} s host "
         f"prep)")
@@ -2020,7 +2245,7 @@ def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_nus_train_")
     res = {}
     try:
-        for name, cfg, n_warm, n_timed in (("bf16", cfg16, 2, 4), ("f32", cfg32, 1, 2)):
+        for (name, cfg), (n_warm, n_timed) in zip((("bf16", cfg16), ("f32", cfg32)), steps):
             model = port.build_model(cfg)
             model.load_state_dict(state)
             warm = Trainer(cfg, model, {"train": [batch, batch]}, save_dir=run_dir)
@@ -2048,14 +2273,14 @@ def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
                 for key, v in st.items():
                     vals = v.values() if isinstance(v, dict) else [v]
                     if not all(bool(torch.isfinite(torch.as_tensor(a)).all()) for a in vals):
-                        fail(f"nuScenes {name} micro-step {i}: non-finite {key}")
+                        fail(f"{preset_name} {name} micro-step {i}: non-finite {key}")
             if tr.optimizer.count != n_timed // iter_size or tr.optimizer.n_skipped:
-                fail(f"nuScenes {name}: Adam's count {tr.optimizer.count} (skipped "
+                fail(f"{preset_name} {name}: Adam's count {tr.optimizer.count} (skipped "
                      f"{tr.optimizer.n_skipped}) after {n_timed} micro-steps at iter_size "
                      f"{iter_size}")
             moved = sum(not torch.equal(a, p.detach()) for a, p in zip(before, tr.params))
             if moved < len(tr.params) // 2 or any(p.dtype != torch.float32 for p in tr.params):
-                fail(f"nuScenes {name}: {moved} of {len(tr.params)} float32 parameters moved")
+                fail(f"{preset_name} {name}: {moved} of {len(tr.params)} float32 parameters moved")
             res[name] = {"ms": statistics.median(times), "all": times, "peak_gib": peak,
                          "counts": counts, "loss": [float(st["loss"]) for st in stats],
                          "moved": moved, "updates": tr.optimizer.count}
@@ -2063,15 +2288,16 @@ def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
         n16 = len(res["bf16"]["all"])
         want.update({"K1-bf16": k1_per * n16, "K1 bwd-bf16": k1_per * n16, "K2-bf16": 3 * n16})
         if res["bf16"]["counts"] != want:
-            fail(f"nuScenes bf16 micro-steps launched {res['bf16']['counts']}, want {want}")
+            fail(f"{preset_name} bf16 micro-steps launched {res['bf16']['counts']}, want {want}")
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
     r16, r32 = res["bf16"], res["f32"]
-    log(f"nuScenes bf16 train: {n16} micro-steps launched {r16['counts']}; Adam's count "
+    log(f"{preset_name} bf16 train: {n16} micro-steps launched {r16['counts']}; Adam's count "
         f"{r16['updates']}, {r16['moved']} float32 parameters moved; loss "
         + ", ".join(f"{x:.4f}" for x in r16["loss"]) + "; float32 loss "
         + ", ".join(f"{x:.4f}" for x in r32["loss"]))
-    log(f"nuScenes train micro-step (B={bsz}, iter_size {iter_size}, CUDA events): bf16 median "
+    log(f"{preset_name} train micro-step (B={bsz}, iter_size {iter_size}, CUDA events): bf16 "
+        f"median "
         f"{r16['ms']:.3f} ms ({', '.join(f'{t:.3f}' for t in r16['all'])}), peak "
         f"{r16['peak_gib']:.3f} GiB; float32 median {r32['ms']:.3f} ms "
         f"({', '.join(f'{t:.3f}' for t in r32['all'])}), peak {r32['peak_gib']:.3f} GiB; on {smi}")
@@ -2119,7 +2345,7 @@ def nuscenes_train_phase(port, state: dict, smi: str) -> dict:
     if cos_a <= 0.99 or cos_b <= 0.95:
         fail(f"bf16 vs float32 whole-gradient cosine (a) {cos_a:.6f}, (b) {cos_b:.6f}")
     p16, p32 = worst_pooled(gb16, gb32), worst_pooled(gb32b, gb32)
-    log(f"nuScenes bf16 vs float32 gradient (B=1, eval BN, deterministic keypoints, the same "
+    log(f"{preset_name} bf16 vs float32 gradient (B=1, eval BN, deterministic keypoints, the same "
         f"weights and batch): (a) without the TPointNet objective: loss {la16:.6f} vs "
         f"{la32:.6f}; {ca} leaves within rel-norm {BF16_LEAF_REL} and cosine {BF16_LEAF_COS}, "
         f"{na} below the noise floor; worst {wl} rel-norm {wr:.3e} cosine {wc:.6f}; whole "
@@ -2734,24 +2960,8 @@ def card_vs_cpu(what: str, port, cfg: dict, model, batch_gpu: dict, scene: dict,
     pv = batch_gpu["pillar_valid"].cpu()
     logits = gpu["fb_logit_pillar"]
     margin = float((logits[..., 1] - logits[..., 0]).abs()[pv].min())
-    est_g = gpu["fb_logit_pillar"][..., 1] > gpu["fb_logit_pillar"][..., 0]
-    est_c = cpu["fb_logit_pillar"][..., 1] > cpu["fb_logit_pillar"][..., 0]
-    flips = int((est_g != est_c)[pv].sum())
-    same_fg = gpu["fb_mask"] == cpu["fb_mask"]
-    errs = {}
-    for key, t in VAL_TOL.items():
-        if gpu[key].shape != cpu[key].shape:
-            fail(f"{what} GPU vs CPU {key}: shape {tuple(gpu[key].shape)} != "
-                 f"{tuple(cpu[key].shape)}")
-        d = (gpu[key] - cpu[key]).abs()
-        if key in ("mos_est", "offset_est"):
-            d = d[same_fg]  # a flipped FB decision changes which rows are decoded
-        errs[key] = float(d.max())
-        if errs[key] > t:
-            fail(f"{what} GPU vs CPU {key}: max abs err {errs[key]:.3e} > {t}")
-    if flips > max(1, int(pv.sum()) // 1000):
-        fail(f"{what}: {flips} pillar FB decisions differ between GPU and CPU")
-    errs.update(fb_flips=flips, fb_margin=margin, pillars=int(pv.sum()))
+    errs = val_against(f"{what} GPU vs CPU", gpu, cpu, pv)
+    errs["fb_margin"] = margin
     # the ego poses compared must be real ones
     from_id = float((gpu["ego_motion_est"][:, 1:] - torch.eye(4)).abs().amax((-1, -2)).min())
     if from_id < 1e-4:
@@ -3436,6 +3646,7 @@ def mesh_runs(port, setup: dict, split: bool) -> dict:
     predict at S=2 (split False: the one-process runs, without the factors),
     each with its launch counts (zeroed just before, read just after) and
     MESH_REPS timings."""
+    from pcaccumulation_tpu_torch.models import egomotion
     from pcaccumulation_tpu_torch.parallel import mesh as pm
     from pcaccumulation_tpu_torch.serve import Predictor
     from pcaccumulation_tpu_torch.train.trainer import Trainer
@@ -3486,9 +3697,26 @@ def mesh_runs(port, setup: dict, split: bool) -> dict:
                 return update(grads)
 
             tr.optimizer.update = record
+            # the step's FB decisions and keypoints (ROADMAP item 31)
+            fwd, draw = {}, egomotion.draw_keypoints
+
+            def record_draw(*args, **kw):
+                idx = draw(*args, **kw)
+                fwd.setdefault("kpts", idx.detach().cpu())
+                return idx
+
+            def record_fb(module, args, out):
+                fwd.setdefault("fb", out["fb_logit_pillar"].detach().cpu())
+
+            hook = model.register_forward_hook(record_fb)
+            egomotion.draw_keypoints = record_draw
             zero_kernel_counts()
             seg_pool_backward.launches = seg_pool_backward.launches_bf16 = 0
-            st = tr.train_step(tbatch, tr.step_generator(1, "train", 0))
+            try:
+                st = tr.train_step(tbatch, tr.step_generator(1, "train", 0))
+            finally:
+                hook.remove()
+                egomotion.draw_keypoints = draw
             counts = dict(kernel_counts(), **{"K1 bwd": seg_pool_backward.launches,
                                               "K1 bwd-bf16": seg_pool_backward.launches_bf16})
             # this rank's gradient before the mean over the ranks
@@ -3501,7 +3729,8 @@ def mesh_runs(port, setup: dict, split: bool) -> dict:
             shutil.rmtree(run_dir, ignore_errors=True)
         res[f"train_{dtype}"] = {"stats": stats, "grads": seen["grads"], "local": local,
                                  "buffers": buffers, "counts": counts, "ms": times,
-                                 "shape": (tr.mesh.data, tr.mesh.frame, tr.mesh.spatial)}
+                                 "shape": (tr.mesh.data, tr.mesh.frame, tr.mesh.spatial),
+                                 "fb_logit_pillar": fwd["fb"], "kpts": fwd["kpts"]}
 
     on = pm.make_mesh(*MESH_AXES["spatial"]) if split else None
     pred = Predictor(with_axes(cfgs["serve"], "spatial" if on else None),
@@ -3543,6 +3772,43 @@ def mesh_rank(rank: int, port_no: int, out_dir: str) -> None:
     res = mesh_runs(port, setup, split=True)
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
     dist.destroy_process_group()
+
+
+POOLED = ("motionhead.", "reconstructor.alignment.motion_embed.",
+          "reconstructor.alignment.geo_embed.", "reconstructor.alignment.pos_embed.")
+
+
+def mesh_bf16_split_report(split: dict, one: dict, names: list) -> str:
+    """What moves the F=2 bf16 micro-step from one process's (ROADMAP item
+    31): the three leaves of `names` farthest from one process's gradient
+    (`bf16_leaf_criterion`'s rel-norm and cosine, above its noise floor),
+    each marked upstream of the TPointNet's max pools (`POOLED`,
+    tests/test_torch_parallel.py) or not; the pillar FB decisions of the
+    step's forward that differ, and the keypoints (per frame, the pillars
+    drawn by one and not by the other)."""
+    floor = max(float(one["grads"][n].norm()) for n in names) * 1e-5
+    rows = []
+    for n in names:
+        a, b = split["grads"][n].double().ravel(), one["grads"][n].double().ravel()
+        if float(b.norm()) < floor:
+            continue
+        rel = float((a - b).norm()) / max(float(a.norm()), float(b.norm()))
+        cos = float(a @ b / (a.norm() * b.norm()).clamp(min=1e-300))
+        rows.append((rel, cos, n))
+    rows.sort(reverse=True)
+    worst = "; ".join(f"{n} rel-norm {rel:.4f} cosine {cos:.4f} "
+                      f"({'upstream of' if n.startswith(POOLED) else 'not upstream of'} the max "
+                      f"pools)" for rel, cos, n in rows[:3])
+    ls, lo = split["fb_logit_pillar"], one["fb_logit_pillar"]
+    valid = lo.abs().sum(-1) > 0
+    fb_s, fb_o = ls[..., 1] > ls[..., 0], lo[..., 1] > lo[..., 0]
+    n_fb = int((fb_s != fb_o)[valid].sum())
+    ks, ko = split["kpts"], one["kpts"]
+    n_kpt = sum(len(set(ks[b, t].tolist()) - set(ko[b, t].tolist()))
+                for b in range(ks.shape[0]) for t in range(ks.shape[1]))
+    return (f"worst leaves {worst}; pillar FB decisions differing {n_fb} of {int(valid.sum())}; "
+            f"keypoints differing {n_kpt} of {ks.numel()} ({ks.shape[1]} frames x "
+            f"{ks.shape[2]})")
 
 
 def mesh_phase(port, val_state: dict, val_scene: dict, nus_state: dict, smi: str) -> dict:
@@ -3626,9 +3892,6 @@ def mesh_phase(port, val_state: dict, val_scene: dict, nus_state: dict, smi: str
             + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
             + f"; launches per rank {[rk[axis]['counts'] for rk in ranks]}")
 
-    # biases directly before a train-mode BatchNorm: zero in exact arithmetic,
-    # cancellation residue here (tests/test_torch_parallel.py sets them aside)
-    structural_zero = ("seg_head.0.bias", "regressor.0.bias", "regressor.3.bias")
     for dtype, u in (("float32", 0.0), ("bfloat16", 2.0 ** -8)):
         tr, tref = [rk[f"train_{dtype}"] for rk in ranks], want[f"train_{dtype}"]
         if any(t["shape"] != (1, 2, 1) for t in tr):
@@ -3659,7 +3922,9 @@ def mesh_phase(port, val_state: dict, val_scene: dict, nus_state: dict, smi: str
             # sample of bf16's noise about the float32 step: held by the
             # criterion of that noise (`bf16_leaf_criterion`), the running
             # statistics by rel-norm 0.05
-            names = [n for n in tref["grads"] if not n.endswith(structural_zero)]
+            names = [n for n in tref["grads"] if not n.endswith(STRUCTURAL_ZERO)]
+            log("mesh micro-step bf16 at F=2 against one process (ROADMAP item 31): "
+                + mesh_bf16_split_report(tr[0], tref, names))
             checked, noise, w_rel, w_cos, w_leaf = bf16_leaf_criterion(
                 tr[0]["grads"], tref["grads"], names, what="mesh micro-step bf16 vs one process")
             for n, w in tref["buffers"].items():
@@ -3723,6 +3988,41 @@ def mesh_phase(port, val_state: dict, val_scene: dict, nus_state: dict, smi: str
     return {"launches": launches, "ms": ms}
 
 
+WAYMO = "configs/waymo.yaml"
+WAYMO_STEPS = ((2, 2), (1, 2))  # (warm-up, timed) micro-steps in bf16, then float32
+
+
+def presets_run(port, dev, gen, smi: str) -> None:
+    """`--only presets`: after the build, the phases of the bf16 presets and
+    the JAX checkpoint alone: the nuScenes and Waymo preset phases, K1/K2 in
+    bf16 at the Waymo shapes, the Waymo training micro-step, a Waymo
+    predict, the JAX fixture and the mesh phase (the default config's main
+    path weights, calibrated as in the full run). Prints the Waymo rows of
+    the `kernels` line and no result line."""
+    from pcaccumulation_tpu_torch.config import load_config
+    from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.profile_forward import calibrate_heads, default_scenes
+
+    _, _, nus_state = preset_phase(port, smi)
+    way_counts, _, way_state = preset_phase(port, smi, WAYMO, "Waymo")
+    rows = waymo_kernel_phase(dev, gen)
+    preset_train_phase(port, way_state, smi, WAYMO, "Waymo", WAYMO_STEPS)
+    serving_phase(port, "waymo_bf16", load_config(WAYMO, ["--train.ckpt_backend=pickle"]),
+                  way_state, 2, smi, export=False)
+    jax_fixture_phase(port)
+    cfg = load_config()
+    cfg["pose_estimation"]["deterministic_sampling"] = True
+    scenes = default_scenes(cfg, 3)
+    torch.manual_seed(SEED)
+    model = port.build_model(cfg)
+    calibrate_heads(model, port.to_device(collate([scenes[0]])))
+    mesh_phase(port, model.state_dict(), scenes[0], nus_state, smi)
+    rows["seg_pool_bf16_waymo"]["launches"] = way_counts["K1-bf16"]
+    rows["row_shift_blocks_bf16_waymo"]["launches"] = way_counts["K2-bf16"]
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    log("--only presets: the preset, fixture and mesh phases passed")
+
+
 def main() -> None:
     args = sys.argv[1:]
     if not torch.cuda.is_available():
@@ -3730,9 +4030,9 @@ def main() -> None:
     if args[:1] == ["--mesh-rank"] and len(args) == 4:  # a process of `mesh_phase`
         mesh_rank(int(args[1]), int(args[2]), args[3])
         return
-    if args not in ([], ["--only", "kernels"]):
-        fail(f"usage: python3 chip_smoke.py [--only kernels], got {args}")
-    only_kernels = bool(args)
+    if args not in ([], ["--only", "kernels"], ["--only", "presets"]):
+        fail(f"usage: python3 chip_smoke.py [--only kernels | --only presets], got {args}")
+    only_kernels = args == ["--only", "kernels"]
     import pcaccumulation_tpu_torch as port
     from pcaccumulation_tpu_torch.config import load_config
     from pcaccumulation_tpu_torch.data.loader import collate
@@ -3771,6 +4071,9 @@ def main() -> None:
 
     gen = torch.Generator().manual_seed(SEED)
     kernels = {}
+    if args == ["--only", "presets"]:
+        presets_run(port, dev, gen, smi)
+        return
 
     # ---- 3. K1 seg_pool vs plain ---------------------------------------------
     k1_edge_phase(dev)
@@ -3924,14 +4227,21 @@ def main() -> None:
     options_cli_phase(port)
 
     # ---- 6e. the nuScenes preset in bf16: val and test forward, the CLI ------
-    nus_counts, nus_ms, nus_state = nuscenes_phase(port, smi)
+    nus_counts, nus_ms, nus_state = preset_phase(port, smi)
     nus_full_ms = nuscenes_full_phase(port, nus_state, nus_ms["val_bf16"], smi)
     nuscenes_cli_phase(port)
+    # ---- 6e'. the Waymo preset in bf16: val and test forward, K1/K2 at its shapes
+    way_counts, way_ms, way_state = preset_phase(port, smi, WAYMO, "Waymo")
+    way_rows = waymo_kernel_phase(dev, gen)
 
-    # ---- 6f. the nuScenes preset's bf16 training: micro-steps, gradient, CLI --
-    nus_train = nuscenes_train_phase(port, nus_state, smi)
+    # ---- 6f. the presets' bf16 training: micro-steps, gradient, CLI ----------
+    nus_train = preset_train_phase(port, nus_state, smi)
+    way_train = preset_train_phase(port, way_state, smi, WAYMO, "Waymo", WAYMO_STEPS)
     remat = remat_phase(port, nus_state, smi)
     nuscenes_cli_train_phase(port)
+
+    # ---- 6f*. a JAX training run's orbax checkpoint taken over ----------------
+    fixture = jax_fixture_phase(port)
 
     # ---- 6f'. reproducible steps; the data-parallel path; the torchrun CLI --------
     det_ms = determinism_phase(port, nus_state, smi)
@@ -3955,6 +4265,8 @@ def main() -> None:
                                  "--tpointnet.icp_max_iter=10"])
     serve_ms["default_f32_icp"] = serving_phase(port, "default_f32_icp", cfg_icp,
                                                 model.state_dict(), 3, smi, export=True)
+    serve_ms["waymo_bf16"] = serving_phase(port, "waymo_bf16", load_config(
+        WAYMO, ["--train.ckpt_backend=pickle"]), way_state, 2, smi, export=False)
 
     # ---- 7. train path: the Trainer's micro-step at full width --------------
     from pcaccumulation_tpu_torch.train.loss import fuse_loss
@@ -4168,6 +4480,10 @@ def main() -> None:
     kernels["seg_pool_bf16"] = dict(bf16_rows["seg_pool_bf16"], launches=nus_counts["K1-bf16"])
     kernels["row_shift_blocks_bf16"] = dict(bf16_rows["row_shift_blocks_bf16"],
                                             launches=nus_counts["K2-bf16"])
+    kernels["seg_pool_bf16_waymo"] = dict(way_rows["seg_pool_bf16_waymo"],
+                                          launches=way_counts["K1-bf16"])
+    kernels["row_shift_blocks_bf16_waymo"] = dict(way_rows["row_shift_blocks_bf16_waymo"],
+                                                  launches=way_counts["K2-bf16"])
     kernels["seg_pool_backward_bf16"] = dict(bf16_rows["seg_pool_backward_bf16"],
                                              launches=nus_train["counts"]["K1 bwd-bf16"])
     kernels["row_shift_blocks_backward_bf16"] = dict(
@@ -4194,6 +4510,11 @@ def main() -> None:
         + " " + " ".join(f"train_{k} {v:.3f}" for k, v in det_ms.items())
         + f" nuscenes_ddp_world1_ms {ddp['ddp_ms']:.3f} nuscenes_plain_ms {ddp['plain_ms']:.3f} "
         + f"train_from_scratch_s {scratch['seconds']:.3f} "
+        + " ".join(f"waymo_{k}_ms {v:.3f}" for k, v in way_ms.items())
+        + f" waymo_train_bf16_ms {way_train['bf16_ms']:.3f} waymo_train_f32_ms "
+        f"{way_train['f32_ms']:.3f} waymo_train_bf16_gib {way_train['bf16_gib']:.3f} "
+        f"waymo_train_f32_gib {way_train['f32_gib']:.3f} "
+        + " ".join(f"{k} {v:.3f}" for k, v in fixture.items()) + " "
         + " ".join(f"{k} {v:.3f}" for k, v in mesh["ms"].items()) + " "
         + " ".join(f"prep_{c}_{p}_ms {r['total']:.3f}" for c, rows in host_prep.items()
                    for p, r in rows.items())

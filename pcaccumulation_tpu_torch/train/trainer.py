@@ -241,14 +241,18 @@ class Optimizer:
         """`state`'s entries of the parameters this rank owns. The entries
         are dicts by parameter name (any number of ranks wrote them) or
         lists over the parameters. Raises ValueError if the saved state does
-        not fit the parameters."""
+        not fit the parameters. A [1] entry fills a 0-d parameter, as in
+        `utils.checkpoint.partial_load`."""
         saved = {}
         for key in ("acc", "mu", "nu"):
             entries = state[key]
             if isinstance(entries, dict):
                 entries = [entries.get(n) for n in self.names]
-            if len(entries) != len(self.params) or any(
-                    entries[i] is None or tuple(entries[i].shape) != tuple(self.params[i].shape)
+            if len(entries) != len(self.params):
+                raise ValueError("optimizer state does not match the parameters")
+            entries = [e.reshape(()) if e is not None and p.dim() == 0 and tuple(e.shape) == (1,)
+                       else e for e, p in zip(entries, self.params)]
+            if any(entries[i] is None or tuple(entries[i].shape) != tuple(self.params[i].shape)
                     for i in self.owned):
                 raise ValueError("optimizer state does not match the parameters")
             saved[key] = entries
@@ -556,13 +560,14 @@ class Trainer:
         self.logger.write(f"Save model to {fname}{'.dcp' if backend == 'orbax' else ''}\n")
 
     def load_pretrain(self, path):
-        """Weights, and the optimizer's state where it maps, from a
+        """Weights, and the optimizer's state where it maps (the port's, the
+        JAX package's optax state in its pickle and orbax forms), from a
         checkpoint in any form `utils.checkpoint.read_checkpoint` reads."""
         state = read_checkpoint(path)
         self.model.load_state_dict(partial_load(state["model"], self.model.state_dict()))
         if state["optimizer"] is None:
-            self.logger.write("the checkpoint's optimizer state is not the port's (the JAX "
-                              "package's optax state, or none); reinitialised\n")
+            self.logger.write("the checkpoint has no optimizer state the port maps (the "
+                              "reference's torch.optim state, or none); reinitialised\n")
         else:
             try:
                 self.optimizer.load_state_dict(state["optimizer"])

@@ -13,19 +13,22 @@ As in the JAX package, a save removes what the other backend left at the
 same path (the reader would take the older one), and overwrites its own.
 
 `read_checkpoint` is the one reader of the Trainer, the Tester and the
-Predictor. It sniffs what lies at the path and reads four forms into the
+Predictor. It sniffs what lies at the path and reads five forms into the
 port's state ({"model", "optimizer" or None, and epoch / best_loss /
 best_metric where the form has them}):
 - the port's `torch.save` file;
 - the JAX package's pickle (`params`, `batch_stats`, `opt_state`): the
-  trees through `utils/weights.py::state_dict_from_jax`; the optax state
-  does not map (optimizer None). Its unpickler maps every class of optax,
+  trees through `utils/weights.py::state_dict_from_jax`, the optax state
+  through `optimizer_state_from_jax` (Adam's moments and count, the
+  accumulation, the skips). Its unpickler maps every class of optax,
   flax, chex and jax to an inert stand-in that keeps its fields, so
   nothing of them is imported, and refuses every other class but numpy's;
+- the JAX package's orbax directory (`<path>.orbax/`, or the directory
+  itself), read by `utils/orbax_read.py` without jax, orbax or
+  tensorstore, and mapped as the pickle is;
 - the reference's `.pth` (`{'state_dict': sd, ...}` or a bare state_dict):
   the reference's names are the port's; its torch.optim state does not map;
 - a DCP directory, given as `<path>` or `<path>.dcp`.
-The JAX package's orbax directories (`<path>.orbax/`) are refused.
 `partial_load` keeps the saved entries whose name and shape match the
 model (the JAX package's `partial_load` semantics).
 """
@@ -41,7 +44,8 @@ import zipfile
 import torch
 import torch.distributed as dist
 
-from pcaccumulation_tpu_torch.utils.weights import state_dict_from_jax
+from pcaccumulation_tpu_torch.utils.orbax_read import OrbaxFormatError, orbax_dir, read_orbax
+from pcaccumulation_tpu_torch.utils.weights import optimizer_state_from_jax, state_dict_from_jax
 
 # the packages whose classes a JAX checkpoint may name; none is imported
 _JAX_FAMILY = ("optax", "flax", "chex", "jax", "jaxlib")
@@ -171,8 +175,10 @@ def _load_dcp(path: str) -> dict:
 def load_checkpoint(path: str) -> dict:
     """What lies at `path`, as it was saved: a `torch.save` file (the port's,
     or the reference's `.pth`; tensors on the CPU), the JAX package's pickle
-    (its host-numpy tree, optax states as `Inert`), or a DCP directory
-    (`path` itself or `<path>.dcp`, nested as the port's state)."""
+    (its host-numpy tree, optax states as `Inert`), the JAX package's orbax
+    directory (`<path>.orbax` or `path` itself: the tree orbax's restore
+    gives without a target), or a DCP directory (`path` itself or
+    `<path>.dcp`, nested as the port's state)."""
     if os.path.isfile(path):
         if zipfile.is_zipfile(path):
             return torch.load(path, map_location="cpu", weights_only=True)
@@ -181,22 +187,24 @@ def load_checkpoint(path: str) -> dict:
     for d in (path, _dcp_dir(path)):
         if os.path.isfile(os.path.join(d, ".metadata")):
             return _load_dcp(d)
+    if orbax_dir(path) is not None:
+        return read_orbax(path)
     if os.path.isdir(os.path.abspath(path) + ".orbax"):
-        raise NotImplementedError(
-            f"{path}: the JAX package's orbax checkpoints are not read by the port; save "
-            "them with the JAX package's --train.ckpt_backend=pickle")
+        raise OrbaxFormatError(f"{path}.orbax: not a whole orbax checkpoint (no _METADATA or "
+                               "manifest.ocdbt)")
     raise FileNotFoundError(path)
 
 
 def read_checkpoint(path: str) -> dict:
-    """The port's state of any of the four forms (see the module docstring):
+    """The port's state of any of the five forms (see the module docstring):
     {"model": state_dict, "optimizer": the port's optimizer state or None,
     and epoch / best_loss / best_metric where the checkpoint has them}."""
     raw = load_checkpoint(path)
     if "model" in raw:                          # the port's file, a DCP directory
         model, opt = raw["model"], raw.get("optimizer")
-    elif "params" in raw:                       # the JAX package's pickle
-        model, opt = state_dict_from_jax(raw["params"], raw["batch_stats"]), None
+    elif "params" in raw:                       # the JAX package's pickle or orbax
+        model = state_dict_from_jax(raw["params"], raw["batch_stats"])
+        opt = optimizer_state_from_jax(raw["opt_state"]) if "opt_state" in raw else None
     elif "state_dict" in raw:                   # the reference's .pth
         model, opt = raw["state_dict"], None
     elif raw and all(torch.is_tensor(v) for v in raw.values()):
@@ -205,7 +213,8 @@ def read_checkpoint(path: str) -> dict:
         raise ValueError(f"{path}: not a checkpoint of the port, the JAX package or the "
                          f"reference (keys {sorted(raw)[:8]})")
     out = {"model": model, "optimizer": opt or None}
-    out.update({k: raw[k] for k in _META if k in raw})
+    out.update({k: raw[k].item() if hasattr(raw[k], "item") else raw[k]
+                for k in _META if k in raw})  # orbax: 0-d arrays
     return out
 
 

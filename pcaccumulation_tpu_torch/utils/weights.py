@@ -19,6 +19,10 @@ With `stpn.n_band_layers` k < 4 the JAX STPN has 3x3 convs `post_conv{i}`
 JAX package's `torch_convert.py` names none); the port names them
 `motionhead.post_conv{i}.weight` / `.bias` (a Conv2d).
 
+`params_from_jax` maps any tree shaped as `params` (a gradient, Adam's
+moments) by the same rules, and `optimizer_state_from_jax` maps the JAX
+Trainer's optax state onto the port's `Optimizer` state with it.
+
 `init_parameters` draws a fresh model's weights from the distributions the
 JAX package's `MotionNet.init` draws them from.
 """
@@ -65,9 +69,10 @@ class _Writer:
     def bn(self, prefix, p, s):
         self.sd[f"{prefix}.weight"] = _tensor(p["scale"])
         self.sd[f"{prefix}.bias"] = _tensor(p["bias"])
-        self.sd[f"{prefix}.running_mean"] = _tensor(s["mean"])
-        self.sd[f"{prefix}.running_var"] = _tensor(s["var"])
-        self.sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        if s is not None:
+            self.sd[f"{prefix}.running_mean"] = _tensor(s["mean"])
+            self.sd[f"{prefix}.running_var"] = _tensor(s["var"])
+            self.sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
 
     def mlp(self, prefix, p):
         """MLP fc{i} -> nn.Sequential Linears at indices 0, 2, 4, ..."""
@@ -77,7 +82,7 @@ class _Writer:
     def seg_head(self, prefix, p, s, conv: bool):
         put = self.conv2d if conv else self.linear
         put(f"{prefix}.seg_head.0", p["conv0" if conv else "fc0"])
-        self.bn(f"{prefix}.seg_head.1", p["bn"], s["bn"])
+        self.bn(f"{prefix}.seg_head.1", p["bn"], _sub(s, "bn"))
         put(f"{prefix}.seg_head.3", p["conv1" if conv else "fc1"])
 
     def unet_levels(self, prefix, p):
@@ -91,8 +96,109 @@ class _Writer:
             self.conv2d(f"{prefix}.up_convs.{i}.conv2", up["conv2"])
 
 
+def _sub(tree, *keys):
+    """tree[k0][k1]..., or None for no tree (a parameter tree's mapping
+    writes no BatchNorm statistics)."""
+    for k in keys:
+        if tree is None:
+            return None
+        tree = tree[k]
+    return tree
+
+
 def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tensor]:
     """JAX MotionNet (params, batch_stats) -> state_dict (CPU float32 tensors)."""
+    return _map(params, batch_stats)
+
+
+def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    """A tree shaped as the JAX MotionNet's `params` (its gradient, Adam's
+    moments, optax's accumulator) -> the port's parameters by name, through
+    the parameters' own layout mapping (CPU float32 tensors)."""
+    return _map(tree, None)
+
+
+# The field order of optax's state NamedTuples (optax 0.2), which the JAX
+# package's pickle checkpoints carry positionally (`utils/checkpoint.py`'s
+# `Inert` stand-ins); the orbax tree names them.
+MULTI_STEPS_FIELDS = ("mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+                      "skip_state")
+APPLY_IF_FINITE_FIELDS = ("notfinite_count", "last_finite", "total_notfinite", "inner_state")
+SCALE_BY_ADAM_FIELDS = ("count", "mu", "nu")
+SCALE_BY_SCHEDULE_FIELDS = ("count",)
+
+
+def _fields(node, names: tuple) -> dict:
+    """An optax state NamedTuple as {field: value}: the orbax tree's dict, or
+    the pickle's stand-in with its fields in order."""
+    if isinstance(node, dict):
+        missing = [n for n in names if n not in node]
+        if missing:
+            raise ValueError(f"optax state without {missing}")
+        return node
+    args = getattr(node, "args", None)
+    if args is None or len(args) != len(names):
+        raise ValueError(f"not an optax state with fields {names}: {node!r}")
+    return dict(zip(names, args))
+
+
+def optimizer_state_from_jax(opt_state, names: list | None = None) -> dict:
+    """The JAX Trainer's optimizer state -> the port's `Optimizer.state_dict()`
+    form: {"acc", "mu", "nu": {parameter name: CPU float32 tensor},
+    "mini_step", "count", "n_skipped"}.
+
+    `opt_state` is the state of `optax.MultiSteps(optax.apply_if_finite(
+    chain(clip_by_global_norm, adam or adamw)))` (the JAX package's
+    `make_optimizer`), as the orbax tree of dicts and lists or as the
+    pickle's stand-ins: MultiStepsState (mini_step, gradient_step,
+    inner_opt_state, acc_grads, skip_state), ApplyIfFiniteState
+    (notfinite_count, last_finite, total_notfinite, inner_state), the chain
+    (clip's empty state, (ScaleByAdamState (count, mu, nu), [adamw: the
+    decay's empty state,] ScaleByScheduleState (count))). `acc_grads`, `mu`
+    and `nu` go through the parameters' own layout mapping
+    (`params_from_jax`). `names`: the parameters to keep (None: all).
+
+    Where the counters differ, the port takes what optax's next update uses:
+    - `count` is Adam's count (its bias corrections) and the schedule's
+      count (the LR): both advance on applied updates only, and must agree.
+      `gradient_step` also counts skipped windows; the update reads it only
+      for `every_k_schedule`, constant in the JAX package, so it is dropped;
+    - `n_skipped` is `total_notfinite`; `notfinite_count` and `last_finite`
+      steer only optax's `max_consecutive_errors` (1000), which the port does
+      not model;
+    - `mini_step` is optax's; at mini_step 0 the accumulator is zero in the
+      port. optax's next micro-step replaces a finite accumulator there
+      (acc + (g - acc) / 1), but after a skipped update it holds 0 * nan
+      and skips every later window, where the port starts afresh (its skip
+      semantics, `train/trainer.py`). Mid-window, a non-finite accumulator
+      is carried: both then skip the window's update.
+    """
+    ms = _fields(opt_state, MULTI_STEPS_FIELDS)
+    aif = _fields(ms["inner_opt_state"], APPLY_IF_FINITE_FIELDS)
+    chain = list(aif["inner_state"])  # a tuple (pickle) or a list (orbax)
+    if len(chain) != 2:
+        raise ValueError(f"not the JAX package's chain(clip, adam): {len(chain)} states")
+    inner = list(chain[1])
+    if len(inner) not in (2, 3):
+        raise ValueError(f"not the JAX package's adam / adamw chain: {len(inner)} states")
+    adam = _fields(inner[0], SCALE_BY_ADAM_FIELDS)
+    sched = _fields(inner[-1], SCALE_BY_SCHEDULE_FIELDS)
+    count, sched_count = int(np.asarray(adam["count"])), int(np.asarray(sched["count"]))
+    if count != sched_count:
+        raise ValueError(f"Adam's count {count} differs from the schedule's {sched_count}")
+    mini_step = int(np.asarray(ms["mini_step"]))
+    out = {"acc": params_from_jax(ms["acc_grads"]), "mu": params_from_jax(adam["mu"]),
+           "nu": params_from_jax(adam["nu"])}
+    if mini_step == 0:
+        out["acc"] = {n: torch.zeros_like(t) for n, t in out["acc"].items()}
+    if names is not None:
+        out = {k: {n: v[n] for n in names if n in v} for k, v in out.items()}
+    out.update(mini_step=mini_step, count=count,
+               n_skipped=int(np.asarray(aif["total_notfinite"])))
+    return out
+
+
+def _map(params: dict, batch_stats: dict | None) -> dict[str, torch.Tensor]:
     wr = _Writer()
     pe = params["pillar_encoder"]
     wr.linear("pillar_encoder.fc_pos", pe["fc_pos"])
@@ -106,11 +212,11 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tens
     wr.unet_levels("unet", params["unet"])
     wr.conv2d("unet.conv_final", params["unet"]["conv_final"])
     for head in ("semseg_head", "ego_feats_head"):
-        wr.seg_head(head, params[head], batch_stats[head], conv=True)
+        wr.seg_head(head, params[head], _sub(batch_stats, head), conv=True)
     for name in ("alpha", "beta"):
         wr.sd[f"ego_motion_head.{name}"] = _tensor(params["ego_motion_head"][name])
 
-    mh, mh_stats = params["motionhead"], batch_stats["motionhead"]
+    mh, mh_stats = params["motionhead"], _sub(batch_stats, "motionhead")
     for i in range(4):
         if f"init_conv{i}" in mh:
             wr.conv3d(f"motionhead.init_conv.{2 * i}", mh[f"init_conv{i}"])
@@ -120,17 +226,17 @@ def state_dict_from_jax(params: dict, batch_stats: dict) -> dict[str, torch.Tens
     wr.mlp("motionhead.positional_encoding", mh["positional_encoding"])
     wr.linear("motionhead.final_proj.0", mh["final_proj"])
     for head in ("mos_seg", "offset_head"):
-        wr.seg_head(f"motionhead.{head}", mh[head], mh_stats[head], conv=False)
+        wr.seg_head(f"motionhead.{head}", mh[head], _sub(mh_stats, head), conv=False)
 
     al = params["reconstructor"]["alignment"]
-    al_stats = batch_stats["reconstructor"]["alignment"]
+    al_stats = _sub(batch_stats, "reconstructor", "alignment")
     pre = "reconstructor.alignment"
     for name in ("geo_embed", "motion_embed", "pos_embed"):
         wr.mlp(f"{pre}.{name}", al[name])
     wr.linear(f"{pre}.regressor.0", al["reg_fc0"])
-    wr.bn(f"{pre}.regressor.1", al["reg_bn0"], al_stats["reg_bn0"])
+    wr.bn(f"{pre}.regressor.1", al["reg_bn0"], _sub(al_stats, "reg_bn0"))
     wr.linear(f"{pre}.regressor.3", al["reg_fc1"])
-    wr.bn(f"{pre}.regressor.4", al["reg_bn1"], al_stats["reg_bn1"])
+    wr.bn(f"{pre}.regressor.4", al["reg_bn1"], _sub(al_stats, "reg_bn1"))
     wr.linear(f"{pre}.regressor.6", al["reg_fc2"])
     return wr.sd
 

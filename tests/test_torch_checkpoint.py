@@ -1,15 +1,15 @@
 """The port's one checkpoint reader (`utils/checkpoint.py::read_checkpoint`)
 and its two backends on the CPU.
 
-The four forms through `misc.pretrain`, in train mode (the Trainer) and in
+The five forms through `misc.pretrain`, in train mode (the Trainer) and in
 test mode (the Tester), with the weights equal after the load: the
 reference's `.pth` (built with `torch.save` from a port state_dict), the
-JAX package's pickle (with its Trainer's optax state), the port's
-`torch.save` file and a `torch.distributed.checkpoint` (DCP) directory.
-Then the DCP round trip with the optimizer's state, the rolling overwrite,
-the migration between the backends, the refusal of the JAX package's
-orbax directories, and a ZeRO-1 checkpoint of two ranks restored into one
-rank and into two (two gloo subprocesses of this file, as in
+JAX package's pickle and orbax directory (with its Trainer's optax state),
+the port's `torch.save` file and a `torch.distributed.checkpoint` (DCP)
+directory. Then the DCP round trip with the optimizer's state, the rolling
+overwrite, the migration between the backends, the refusal of an orbax
+directory that is not whole, and a ZeRO-1 checkpoint of two ranks restored
+into one rank and into two (two gloo subprocesses of this file, as in
 tests/test_torch_parallel.py).
 """
 
@@ -65,7 +65,7 @@ def _write_form(form, setup, tmp_path):
         path = str(tmp_path / "reference.pth")
         torch.save({"state_dict": sd, "epoch": 3, "best_loss": 0.5}, path)
         return path, sd, 3
-    if form == "jax_pickle":
+    if form in ("jax_pickle", "jax_orbax"):
         import jax
 
         import pcaccumulation_tpu.train.trainer as jtrainer
@@ -78,7 +78,8 @@ def _write_form(form, setup, tmp_path):
         path = str(tmp_path / "model_latest.ckpt")
         jax_save(path, {"epoch": 5, "params": params, "batch_stats": stats,
                         "opt_state": tx.init(jax.tree.map(np.asarray, params)),
-                        "best_loss": 1.5, "best_metric": 0.25})
+                        "best_loss": 1.5, "best_metric": 0.25},
+                 backend="orbax" if form == "jax_orbax" else "pickle")
         return path, state_dict_from_jax(params, stats), 5
     backend = {"port": "pickle", "dcp": "orbax"}[form]
     tr = _trainer(_cfg(setup, backend=backend), tmp_path, "src", state=sd)
@@ -87,12 +88,13 @@ def _write_form(form, setup, tmp_path):
 
 
 @pytest.mark.parametrize("mode", ["train", "test"])
-@pytest.mark.parametrize("form", ["pth", "jax_pickle", "port", "dcp"])
+@pytest.mark.parametrize("form", ["pth", "jax_pickle", "jax_orbax", "port", "dcp"])
 def test_pretrain_reads_every_form(form, mode, setup, tmp_path):
     """`misc.pretrain` names a checkpoint of each form: the Trainer (train
     mode) and the Tester (test mode) load its weights exactly; the Trainer
-    takes the epoch, keeps the port's optimizer state and reinitialises
-    one that does not map (logged), with no KeyError."""
+    takes the epoch, keeps the port's optimizer state and the JAX
+    package's mapped optax state, and reinitialises the reference's
+    torch.optim state, which does not map (logged), with no KeyError."""
     from pcaccumulation_tpu_torch import build_model
     from pcaccumulation_tpu_torch.train.tester import Tester
 
@@ -107,7 +109,7 @@ def test_pretrain_reads_every_form(form, mode, setup, tmp_path):
     _assert_weights(tr.model, want)
     assert tr.start_epoch == epoch + 1
     log = (tmp_path / "dst" / "log").read_text()
-    assert ("reinitialised" in log) == (form in ("pth", "jax_pickle")), log
+    assert ("reinitialised" in log) == (form == "pth"), log
 
 
 def test_dcp_round_trip_with_the_optimizer(setup, tmp_path):
@@ -160,15 +162,19 @@ def test_rolling_overwrite_and_backend_migration(setup, tmp_path):
 
 
 def test_jax_orbax_directory_is_refused(setup, tmp_path):
-    """The JAX package's orbax checkpoints (`<path>.orbax/`) are refused
-    with the way out; a missing path is a FileNotFoundError."""
+    """The JAX package's orbax checkpoints (`<path>.orbax/`) are read
+    (`test_pretrain_reads_every_form[jax_orbax]`, tests/test_torch_orbax.py);
+    what is refused is a `<path>.orbax/` that is not a whole one (here an
+    empty directory), by the reader and by the Trainer, with the missing
+    files named; a missing path is a FileNotFoundError."""
     from pcaccumulation_tpu_torch.utils.checkpoint import read_checkpoint
+    from pcaccumulation_tpu_torch.utils.orbax_read import OrbaxFormatError
 
     path = str(tmp_path / "model_latest.ckpt")
     os.makedirs(path + ".orbax")
-    with pytest.raises(NotImplementedError, match="orbax checkpoints are not read"):
+    with pytest.raises(OrbaxFormatError, match="not a whole orbax checkpoint"):
         read_checkpoint(path)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(OrbaxFormatError, match="_METADATA or manifest.ocdbt"):
         _trainer(_cfg(setup, pretrain=path), tmp_path, "t")
     with pytest.raises(FileNotFoundError):
         read_checkpoint(str(tmp_path / "absent.ckpt"))

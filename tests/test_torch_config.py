@@ -92,15 +92,36 @@ def test_shipped_configs_pass_the_check(path):
 @pytest.mark.parametrize("path", ["waymo.yaml", "nuscene.yaml"])
 def test_orbax_configs_are_refused(path, tmp_path):
     """The presets that checkpoint with orbax pass the check and write a
-    torch.distributed.checkpoint directory; what stays refused is the JAX
-    package's own orbax directory at a checkpoint path, with its message."""
+    torch.distributed.checkpoint directory, and the Tester reads the JAX
+    package's own orbax directory at a checkpoint path: a real save by the
+    JAX package's `save_checkpoint(..., backend="orbax")` at the preset's
+    full width (the parameter tree `convert_state_dict` makes of a port
+    state_dict) loads every weight bit for bit. What stays refused is a
+    `<path>.orbax/` that is not a whole checkpoint, with its message."""
+    from pcaccumulation_tpu.utils.checkpoint import save_checkpoint as jax_save
+    from pcaccumulation_tpu.utils.torch_convert import convert_state_dict
+    from pcaccumulation_tpu_torch.utils.orbax_read import OrbaxFormatError
+
     cfg = load_config(str(REPO / "configs" / path))
     assert cfg["train"]["ckpt_backend"] == "orbax"
     check_supported(cfg)
-    (tmp_path / "model_latest.ckpt.orbax").mkdir()
-    cfg["misc"]["pretrain"] = str(tmp_path / "model_latest.ckpt")
-    with pytest.raises(NotImplementedError, match="orbax checkpoints are not read"):
+    (tmp_path / "empty.ckpt.orbax").mkdir()
+    cfg["misc"]["pretrain"] = str(tmp_path / "empty.ckpt")
+    with pytest.raises(OrbaxFormatError, match="not a whole orbax checkpoint"):
         tester.Tester(cfg, build_model(cfg, device="cpu"), save_dir=str(tmp_path), device="cpu")
+
+    torch.manual_seed(1)
+    want = build_model(cfg, device="cpu").state_dict()
+    params, stats = convert_state_dict({k: v.numpy() for k, v in want.items()},
+                                       cfg["pillar_encoder"]["depth"], cfg["unet"]["depth"])
+    jax_save(str(tmp_path / "model_latest.ckpt"),
+             {"epoch": 1, "params": params, "batch_stats": stats}, backend="orbax")
+    cfg["misc"]["pretrain"] = str(tmp_path / "model_latest.ckpt")
+    got = tester.Tester(cfg, build_model(cfg, device="cpu"), save_dir=str(tmp_path),
+                        device="cpu").model.state_dict()
+    for k, v in want.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got[k], v), k
 
 
 @pytest.mark.parametrize("world,override,ok", [

@@ -263,8 +263,10 @@ def _port_files():
 
 def test_port_imports_no_jax():
     """No file of the port (parallel/ included), and not chip_smoke.py,
-    imports jax, flax, optax or the JAX package."""
-    banned = {"jax", "flax", "optax", "pcaccumulation_tpu"}
+    imports jax, flax, optax, orbax, tensorstore, zstandard or the JAX
+    package; nor does reading the tracked JAX orbax checkpoint
+    (tests/data/jax_orbax_tiny) through `read_checkpoint`."""
+    banned = {"jax", "flax", "optax", "orbax", "tensorstore", "zstandard", "pcaccumulation_tpu"}
     found = []
     files = _port_files()
     assert REPO / "pcaccumulation_tpu_torch" / "parallel" / "mesh.py" in files
@@ -288,9 +290,13 @@ def test_port_imports_no_jax():
             "pcaccumulation_tpu_torch.serve, pcaccumulation_tpu_torch.track, "
             "pcaccumulation_tpu_torch.utils.checkpoint, pcaccumulation_tpu_torch.data.ground, "
             "pcaccumulation_tpu_torch.train.sf_metrics, pcaccumulation_tpu_torch.parallel.mesh, "
-            "pcaccumulation_tpu_torch.native.host; "
+            "pcaccumulation_tpu_torch.native.host, pcaccumulation_tpu_torch.utils.orbax_read; "
+            "s = pcaccumulation_tpu_torch.utils.checkpoint.read_checkpoint("
+            "'tests/data/jax_orbax_tiny/model_latest.ckpt'); "
+            "assert s['optimizer']['count'] == 2 and s['optimizer']['mini_step'] == 1; "
             "assert not [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'optax', 'pcaccumulation_tpu')], sorted(sys.modules)")
+            "('jax', 'flax', 'optax', 'orbax', 'tensorstore', 'zstandard', "
+            "'pcaccumulation_tpu')], sorted(sys.modules)")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
