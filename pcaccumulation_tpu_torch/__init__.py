@@ -47,18 +47,20 @@ def build_model(cfg: dict, device=None, generator: torch.Generator | None = None
     normal lecun kernels, xavier kernels in the UNets, zero biases, BatchNorm
     at ones and zeros, the affinity's alpha and beta at -5. So the same
     generator seed gives the same weights on every device and rank.
-    `model_generator(cfg)` is the one seeded from `misc.seed`. With a
-    generator, torch's default generator is left as it was. Reading a
-    checkpoint (`load_state_dict`) overwrites them. TF32 is switched off
-    for matrix products and convolutions: the float32 config and the
-    geometry are float32 throughout, as in the JAX package.
+    `model_generator(cfg)` is the one seeded from `misc.seed`. The modules
+    are built on the meta device, so `init_parameters` makes the only draw
+    and writes every value: with a generator, torch's default generator is
+    left as it was. Reading a checkpoint (`load_state_dict`) overwrites
+    them. TF32 is switched off for matrix products and convolutions: the
+    float32 config and the geometry are float32 throughout, as in the JAX
+    package.
     """
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    with torch.random.fork_rng(devices=[], enabled=generator is not None):
-        model = MotionNet(cfg)  # torch's own draws, overwritten below
-    return init_parameters(model, generator).to(dev).eval()
+    with torch.device("meta"):
+        model = MotionNet(cfg)  # no storage and no draws: init_parameters writes every value
+    return init_parameters(model.to_empty(device="cpu"), generator).to(dev).eval()
 
 
 def model_generator(cfg: dict) -> torch.Generator:

@@ -83,11 +83,10 @@ class EgoMotionHead(nn.Module):
                  icp: bool = False, icp_threshold: float = 0.15, icp_max_iter: int = 50):
         super().__init__()
         self.seq_pose = seq_pose
-        pairs, self.chained_src = pair_lists(n_sweeps, seq_pose)
+        self.pairs, self.chained_src = pair_lists(n_sweeps, seq_pose)
         # the pair lists on the model's device (no state: not in the state_dict)
-        self.register_buffer("src_f", torch.tensor([p[0] for p in pairs]), persistent=False)
-        self.register_buffer("tgt_f", torch.tensor([p[1] for p in pairs]), persistent=False)
-        self.register_buffer("anchor_pairs", torch.tensor(self.chained_src), persistent=False)
+        for name in ("src_f", "tgt_f", "anchor_pairs"):
+            self.register_buffer(name, None, persistent=False)
         self.icp = icp
         self.icp_threshold = icp_threshold
         self.icp_max_iter = icp_max_iter
@@ -99,8 +98,21 @@ class EgoMotionHead(nn.Module):
         self.max_speed = max_speed
         self.deterministic_sampling = deterministic_sampling
         # affinity parameters
-        self.alpha = nn.Parameter(torch.tensor(-5.0))
-        self.beta = nn.Parameter(torch.tensor(-5.0))
+        self.alpha = nn.Parameter(torch.empty(()))
+        self.beta = nn.Parameter(torch.empty(()))
+        self.reset_parameters()
+
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        """alpha and beta at -5 and the pair lists, on the parameters'
+        device (again after a build on the meta device and `to_empty`, as
+        `build_model` builds)."""
+        self.alpha.fill_(-5.0)
+        self.beta.fill_(-5.0)
+        dev = self.alpha.device
+        self.src_f = torch.tensor([p[0] for p in self.pairs], device=dev)
+        self.tgt_f = torch.tensor([p[1] for p in self.pairs], device=dev)
+        self.anchor_pairs = torch.tensor(self.chained_src, device=dev)
 
     def forward(self, pillar_feats, pillar_mean, pillar_t, pillar_valid, pillar_bg,
                 ego_motion_gt, pillar_scan_key=None, generator=None, points=None,

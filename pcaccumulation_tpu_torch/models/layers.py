@@ -96,8 +96,14 @@ class Conv3d(nn.Conv3d):
     def forward(self, x):
         if self.compute_dtype is None:
             return super().forward(x)
-        return _apply_cast(lambda a, w: self._conv_forward(a, w, None), self.compute_dtype, x,
-                           self.weight, self.bias)
+        op = lambda a, w: self._conv_forward(a, w, None)  # noqa: E731
+        if x.device.type == "cpu" and self.compute_dtype == torch.bfloat16:
+            # oneDNN's bf16 Conv3d weight gradient is NaN in one CPU thread
+            # and varies between runs in several: the CPU takes float32
+            # products of the bf16 values, rounded once, as a bf16
+            # convolution that sums in float32 does
+            op = lambda a, w: self._conv_forward(a.float(), w.float(), None).to(a.dtype)  # noqa: E731
+        return _apply_cast(op, self.compute_dtype, x, self.weight, self.bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

@@ -286,9 +286,11 @@ def init_parameters(model: nn.Module, generator: torch.Generator | None = None) 
     `truncated_normal * sqrt(1 / fan) / TRUNC_STD`, fan_in
     ("lecun", flax's `lecun_normal`) or the mean of fan_in and fan_out
     ("xavier", `xavier_normal`) from `jax_fans`; biases are zero. The
-    buffers are reset (running mean 0, var 1). Raises if a parameter has no
-    rule. Each port name (`*` for indices) with its JAX leaf, initialiser
-    and source line (files of `pcaccumulation_tpu/models/`):
+    buffers are reset (running mean 0, var 1; the ego head's pair lists
+    rebuilt), so a model built on the meta device and `to_empty` is whole.
+    Raises if a parameter or buffer has no rule. Each port name (`*` for
+    indices) with its JAX leaf, initialiser and source line (files of
+    `pcaccumulation_tpu/models/`):
 
     pillar_encoder.fc_pos.weight, pillar_encoder.fc_c.weight
         fc_pos, fc_c kernel: lecun; pillar_encoder.py:299,306 (Dense)
@@ -364,12 +366,13 @@ def init_parameters(model: nn.Module, generator: torch.Generator | None = None) 
             module.running_var.fill_(1.0)
             module.num_batches_tracked.zero_()
         elif isinstance(module, EgoMotionHead):
-            module.alpha.fill_(-5.0)
-            module.beta.fill_(-5.0)
+            module.reset_parameters()
         else:
             continue
-        done.update(id(p) for p in module.parameters(recurse=False))
-    missed = [n for n, p in model.named_parameters() if id(p) not in done]
+        done.update(id(t) for t in (*module.parameters(recurse=False),
+                                    *module.buffers(recurse=False)))
+    missed = [n for n, t in (*model.named_parameters(), *model.named_buffers())
+              if id(t) not in done]
     if missed:
         raise ValueError(f"no initialisation rule for {missed}")
     return model

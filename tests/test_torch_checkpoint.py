@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from test_torch_parallel import _load_setup, _rows, run_ranks, tiny_setup
 
 

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
 

@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu_torch.kernels.chamfer import (
     chamfer_distance,
     nn,

@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.config import derive, load_config
 from pcaccumulation_tpu.models import MotionNet as JaxMotionNet
 from pcaccumulation_tpu_torch import build_model, model_generator

@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu_torch.kernels.row_shift import (
     row_shift_blocks,
     row_shift_blocks_backward,

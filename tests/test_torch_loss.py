@@ -11,6 +11,8 @@ import optax
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.kernels import segscan as jsegscan
 from pcaccumulation_tpu.ops import bilinear as jbil
 from pcaccumulation_tpu.ops.kabsch import _safe_svd_bwd

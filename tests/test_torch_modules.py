@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.models import layers as jl
 from pcaccumulation_tpu.models.egomotion import EgoMotionHead as JEgo
 from pcaccumulation_tpu.models.pillar_encoder import PillarFeatureNet as JPFN

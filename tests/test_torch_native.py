@@ -28,6 +28,8 @@ from pcaccumulation_tpu_torch.data.dataset import prep_sample
 from pcaccumulation_tpu_torch.native import host
 from pcaccumulation_tpu_torch.profile_forward import default_samples
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 REPO = Path(__file__).resolve().parent.parent
 VOXEL = [0.25, 0.25, 8.0]
 RANGE = [-8.0, -8.0, -5.0, 8.0, 8.0, 3.0]

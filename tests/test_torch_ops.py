@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.ops import bilinear as jbil
 from pcaccumulation_tpu.ops.kabsch import weighted_kabsch as j_weighted_kabsch
 from pcaccumulation_tpu.ops import se3 as jse3

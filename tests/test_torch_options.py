@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.data import loader as jloader
 from pcaccumulation_tpu.models.egomotion import EgoMotionHead as JEgo
 from pcaccumulation_tpu.models.egomotion import pair_lists as j_pair_lists

@@ -27,6 +27,8 @@ import optax
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 import pcaccumulation_tpu.train.trainer as jtrainer
 from pcaccumulation_tpu.utils.checkpoint import load_checkpoint as jax_load
 from pcaccumulation_tpu.utils.checkpoint import save_checkpoint as jax_save

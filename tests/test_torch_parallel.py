@@ -26,16 +26,20 @@ from __future__ import annotations
 
 import json
 import os
-import socket
-import subprocess
 import sys
 
 import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
+sys.path.insert(0, HERE)
+
+import ranks  # noqa: E402
+
 RANK_TIMEOUT_S = 240  # each subprocess; the rendezvous times out after 60 s
 N_MICRO = 6           # 3 updates at iter_size 2
 
@@ -71,36 +75,15 @@ POOLED = ("motionhead.", "reconstructor.alignment.motion_embed.",
           "reconstructor.alignment.geo_embed.", "reconstructor.alignment.pos_embed.")
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(case: str, world: int, out: str, with_reference: bool = False,
               script: str = __file__) -> None:
     """Start the `world` ranks of `case` as subprocesses of `script` (and,
     with_reference, the one-process run on the joined batch) and wait for
     all of them."""
-    port = free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-    env.pop("XLA_FLAGS", None)
-    cmds = [[sys.executable, script, case, str(r), str(world), str(port), out]
-            for r in range(world)]
+    cmds = ranks.script_commands(script, case, world, ranks.free_port(), out)
     if with_reference:
         cmds.append([sys.executable, script, case, "0", "1", "0", out])
-    procs = [subprocess.Popen(c, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for c in cmds]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=RANK_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for p, log in zip(procs, logs):
-        assert p.returncode == 0, log[-4000:]
+    ranks.wait(ranks.start(cmds), RANK_TIMEOUT_S)
 
 
 def tiny_setup(out: str, batch_size: int = 4, seed: int = 0) -> dict:

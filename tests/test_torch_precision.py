@@ -30,6 +30,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.config import derive, load_config
 from pcaccumulation_tpu.data.dataset import prep_sample
 from pcaccumulation_tpu.data.loader import collate
@@ -334,6 +336,43 @@ def test_pillar_feature_net_bf16_matches_flax(net):
     with torch.no_grad():
         got = models["bf16"].pillar_encoder(*[T(a) for a in args], m)
     assert_bf16_close(got, want, 2, "pillar_feature_net", JPFN(**kw).apply(v, *args, m))
+
+
+@pytest.mark.parametrize("threads", [1, 4])
+def test_conv3d_bf16_gradient_on_the_cpu(threads):
+    """The STPN's bf16 Conv3d on the CPU ([2, 32, 3, 64, 64], as the STPN
+    sees a small canvas), in one and in four threads: its gradients are
+    finite, the same bits in two calls, and within bf16's rounding (rel-norm
+    < 2e-2) of the float32 convolution's. oneDNN's bf16 Conv3d weight
+    gradient was NaN here in one thread and varied between calls in
+    several (ROADMAP item 32); the port takes float32 products of the bf16
+    values, rounded once."""
+    gen = torch.Generator().manual_seed(0)
+    conv = tl.Conv3d(32, 32, 3, padding=1, compute_dtype=torch.bfloat16)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 0.05)
+        conv.bias.copy_(torch.randn(conv.bias.shape, generator=gen) * 0.05)
+    x = torch.randn(2, 32, 3, 64, 64, generator=gen).bfloat16().float().requires_grad_()
+    g_out = torch.randn(2, 32, 3, 64, 64, generator=gen)
+
+    def grads(compute_dtype):
+        conv.compute_dtype = compute_dtype
+        conv.zero_grad()
+        x.grad = None
+        conv(x).float().backward(g_out)
+        return [t.grad.clone() for t in (x, conv.weight, conv.bias)]
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        got, again = grads(torch.bfloat16), grads(torch.bfloat16)
+        want = grads(None)
+    finally:
+        torch.set_num_threads(before)
+    for g, a, w, name in zip(got, again, want, ("input", "weight", "bias")):
+        assert bool(torch.isfinite(g).all()), name
+        assert torch.equal(g, a), name
+        assert float((g - w).norm() / w.norm()) < 2e-2, name
 
 
 def test_stpn_bf16_matches_flax(net):

@@ -19,6 +19,8 @@ import pytest
 import torch
 from torch.utils.checkpoint import checkpoint
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.models import MotionNet as JaxMotionNet
 from pcaccumulation_tpu.train.loss import fuse_loss as j_fuse_loss
 from pcaccumulation_tpu_torch import build_model, to_device

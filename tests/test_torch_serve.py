@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.data.dataset import prep_sample as jax_prep_sample
 from pcaccumulation_tpu.data.loader import collate
 from pcaccumulation_tpu.ops import cluster as jcl

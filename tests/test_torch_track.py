@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu import track as jtrack
 from pcaccumulation_tpu.data import ground as jground
 from pcaccumulation_tpu.data.synthetic import write_synthetic_dataset as jax_write

@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 from pcaccumulation_tpu.models import MotionNet as JaxMotionNet
 from pcaccumulation_tpu.train.loss import fuse_loss as j_fuse_loss
 from pcaccumulation_tpu_torch import build_model, to_device

@@ -29,6 +29,8 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_threads  # noqa: F401  (torch's threads: this xdist worker's share of the cores)
+
 import pcaccumulation_tpu.ops.bilinear as jbilinear
 from pcaccumulation_tpu.data.synthetic import write_synthetic_dataset
 from pcaccumulation_tpu.kernels.segscan import seg_pool as jseg_pool

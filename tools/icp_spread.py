@@ -73,6 +73,7 @@ def main(argv=None) -> int:
     import pcaccumulation_tpu_torch as port
     from pcaccumulation_tpu_torch.config import load_config
     from pcaccumulation_tpu_torch.data.loader import collate
+    from pcaccumulation_tpu_torch.models import tpointnet
     from pcaccumulation_tpu_torch.ops.icp import refine_instance_poses
     from pcaccumulation_tpu_torch.profile_forward import (
         calibrate_heads,
@@ -92,7 +93,7 @@ def main(argv=None) -> int:
     m3 = port.build_model(cfg3, "cpu")
     m3.load_state_dict(model.state_dict())
     with torch.no_grad():
-        with chip_smoke.recording_instance_icp() as icp_calls:
+        with chip_smoke.recording(tpointnet, "refine_instance_poses") as icp_calls:
             plain = m3(bt, mode="test")
         labels = plain["inst_labels_est"]
         with chip_smoke.difference_form():
